@@ -7,14 +7,17 @@ Run from the repository root, with no arguments::
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
-1. setup — build the four CUDA kernels from ``src/repro_torch/kernels/
+1. setup — build the five CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) and print the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes: ``fd_round_wing``/``fd_round_tip`` on the
    packed wing-60k / tip-1m partition stacks, round by round to the
    fixed point, every output compared; ``support_update`` and
-   ``wedge_count`` on the wing-60k slot matrices.  All comparisons are
-   ``torch.equal`` (every output is an exact integer).  Times each.
+   ``wedge_count`` on the wing-60k slot matrices; ``wedge_count_tile``
+   on the slot matrix of tip-1m's largest wedge tile, built on the card
+   from the ingested TSV.  All comparisons are ``torch.equal`` (every
+   output is an exact integer).  Times each, and the one PyTorch call
+   that computes the same function where there is one.
 3. goldens — every csr cell of ``tests/goldens/peel_goldens.json``
    (fused kernels on for the device/vmapped drivers), plus kernel-route
    reruns (``use_pallas``) of one wing and one tip graph.
@@ -25,6 +28,16 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 6. fd-drivers — from one CD per graph, Phase 2 under every FD driver
    (fused and unfused device/vmapped, and the kernel-free host driver),
    each held to the same JAX values and timed.
+7. real-graphs — the ``--edges ... --emit-hierarchy`` path of the CLI:
+   ``datasets/southern_women.tsv`` (wing and tip, ``--use-pallas``), the
+   tip-1m graph written as a TSV (host tiled init, fused FD, hierarchy
+   on the card), the tiled init of tip-1m through ``wedge_count_tile``
+   (``tiled_butterfly_init(use_pallas=True)``), the 60k graph as wing
+   and tip with ``--use-pallas``; then every artifact loaded back and a
+   seeded batch of queries served through ``HierarchyService`` on the
+   card.  Every step is held to ``tests/goldens/torch_realdata.json``
+   (recorded by ``tests/goldens/record_torch_realdata.py``) and
+   ``tests/goldens/real_graphs.json``.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -33,10 +46,13 @@ as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -51,9 +67,13 @@ KERNEL_INFO = {
                        "src/repro/kernels/support_update.py:82"),
     "wedge_count": ("src/repro_torch/kernels/csrc/wedge_count.cu",
                     "src/repro/kernels/wedge_count.py:89"),
+    "wedge_count_tile": ("src/repro_torch/kernels/csrc/wedge_count.cu",
+                         "src/repro/kernels/wedge_count.py:59"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
+INGEST_FILES = ("edges", "off_u", "off_v", "nbr_v", "eid_v")
+TILE_FIELDS = ("n_tiles", "n_wedges", "n_pairs", "peak_tile_wedges")
 GOLDEN_FIELDS = ("theta", "part", "ranges", "support_init") + STAT_FIELDS
 
 
@@ -166,21 +186,25 @@ def check_fd_round(name, state0, statics, step_kernel, step_plain,
     return row
 
 
-def check_rows_kernel(name, kernel, plain, inputs, nbytes, reps=20):
+def check_rows_kernel(name, kernel, plain, inputs, nbytes, reps=20,
+                      library=None):
     """One call of a row-parallel kernel against its plain version, then
-    both timed over ``reps`` calls."""
+    both timed over ``reps`` calls, and ``library`` (one PyTorch call
+    computing the same function) where there is one."""
     got = kernel(*inputs)
     want = plain(*inputs)
     require_equal(name, got, want, "on the main path's slot matrix")
     ms = cuda_ms(lambda: kernel(*inputs), reps)
     plain_ms = cuda_ms(lambda: plain(*inputs), reps)
-    row = dict(ms=ms, plain_ms=plain_ms,
+    library_ms = (None if library is None
+                  else cuda_ms(lambda: library(*inputs), reps))
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                bytes_per_call=nbytes, calls_checked=1, max_abs_err=0.0)
     log(f"[smoke]   {name}: equal to the plain version on "
         f"{tuple(inputs[0].shape)}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, {nbytes / 1e6:.1f} MB -> bound "
-        f"{row['bound_ms']:.4f} ms")
+        f"{plain_ms:.4f} ms, library {library_ms} ms, {nbytes / 1e6:.1f} MB "
+        f"-> bound {row['bound_ms']:.4f} ms")
     return row
 
 
@@ -207,7 +231,7 @@ def prepare(fullsize, name, dev, cache: dict) -> dict:
     return cache[name]
 
 
-def phase_kernels(fullsize, dev, cache):
+def phase_kernels(fullsize, realdata, dev, cache, tmp):
     import numpy as np
     import torch
 
@@ -299,8 +323,47 @@ def phase_kernels(fullsize, dev, cache):
         "fd_round_tip", state0, (st["st_pa"], st["st_pb"], st["st_bf"]),
         ops.fd_round_tip, ref.fd_round_tip_ref,
         lambda s: 4 * (5 * B * E + 3 * B * L))
+    del state0, st
     torch.cuda.empty_cache()
+
+    rows["wedge_count_tile"] = check_tile_kernel(realdata, dev, tmp)
     return rows
+
+
+def check_tile_kernel(realdata, dev, tmp):
+    """``wedge_count_tile`` on the slot matrix of tip-1m's largest wedge
+    tile (from the ingested TSV), built on the card as the tiled init
+    builds it; timed beside its plain version and ``torch.sum``."""
+    import torch
+
+    from repro_torch.core import csr
+    from repro_torch.data import ingest_edges
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wedge_count import wedge_count_tile
+
+    want = realdata["tip-1m"]
+    ig = ingest_edges(write_tsv(realdata, "tip-1m", tmp),
+                      out_dir=os.path.join(tmp, "tile-check.ingest"))
+    a = b = None
+    for ta, tb, _, _ in csr.iter_wedge_tiles(ig, want["tile_wedges"]):
+        if a is None or ta.size > a.size:
+            a, b = ta, tb
+    if a.size != want["tiled_init"]["peak_tile_wedges"]:
+        raise AssertionError(f"tip-1m peak tile has {a.size} wedges, JAX "
+                             f"{want['tiled_init']['peak_tile_wedges']}")
+    lay = csr.tile_layout(a, b, ig.n_u, 512, dev)
+    slots = csr.tile_slot_matrix(lay)
+    n, width = lay.n_rows, slots.shape[1]
+    log(f"[smoke]   tip-1m peak tile: {a.size} wedges, {n} slot rows x "
+        f"{width} ({slots.shape[0]} rows after the bucket)")
+    row = check_rows_kernel(
+        "wedge_count_tile", lambda s: (wedge_count_tile(s, n),),
+        lambda s: (ref.tile_row_counts_ref(s[:n]),), (slots,),
+        4 * n * width + 4 * n,
+        library=lambda s: s[:n].sum(1, dtype=torch.int32))
+    del slots, lay
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------
@@ -408,6 +471,242 @@ def main_path(fullsize, name, g, flags, launches, dev):
     return counts, dt
 
 
+# ---------------------------------------------------------------------
+# phase 7: real graphs — edge list → ingest → tiled init → peel →
+# hierarchy → served queries
+# ---------------------------------------------------------------------
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sha_bytes(a) -> str:
+    """sha256 of an array's raw bytes in its own dtype."""
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def sha_int64(a) -> str:
+    import numpy as np
+
+    return sha_bytes(np.asarray(a, dtype=np.int64))
+
+
+def write_tsv(realdata, name, tmp) -> str:
+    """A recorded graph's edge list as a KONECT-style TSV (a header, then
+    1-based ``u<TAB>v`` rows), byte for byte the recorder's file."""
+    import numpy as np
+
+    from repro_torch.core.graph import powerlaw_bipartite
+
+    path = os.path.join(tmp, f"{name}.tsv")
+    if not os.path.exists(path):
+        edges = powerlaw_bipartite(**realdata[name]["graph"]).edges
+        with open(path, "w") as f:
+            f.write("% bip unweighted\n")
+            np.savetxt(f, np.asarray(edges, dtype=np.int64) + 1, fmt="%d",
+                       delimiter="\t")
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    expect(name, "TSV sha256", sha, realdata[name]["tsv_sha256"])
+    return path
+
+
+def query_batch_inputs(n_entities, n_nodes, n, seed):
+    """The recorder's seeded batch of mixed ``HierarchyService`` queries:
+    op codes 0..4, entity ids (node ids for op 4) and second entity ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ops = rng.integers(0, 5, size=n)
+    a_ent = rng.integers(0, n_entities, size=n)
+    a_node = rng.integers(0, n_nodes, size=n)
+    b = rng.integers(0, n_entities, size=n)
+    a = np.where(ops == 4, a_node, a_ent)
+    return ops.astype(np.int32), a.astype(np.int32), b.astype(np.int32)
+
+
+def expect(name, what, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: {what} {got} != JAX {want}")
+
+
+def check_ingest(name, want, ingest_dir) -> None:
+    from repro_torch.data import load_ingested
+
+    ig = load_ingested(ingest_dir)
+    got = dict(n_u=ig.n_u, n_v=ig.n_v, m=ig.m)
+    got.update({f"{k}_sha256": sha_bytes(getattr(ig, k))
+                for k in INGEST_FILES})
+    expect(name, "ingest", got, want["ingest"])
+
+
+def check_tiled(name, want, total, ts, sup_e=None, sup_u=None) -> None:
+    w = want["tiled_init"]
+    got = dict(total=int(total), **{f: getattr(ts, f) for f in TILE_FIELDS})
+    expect(name, "tiled init", got, {k: w[k] for k in got})
+    for key, arr in (("sup_e", sup_e), ("sup_u", sup_u)):
+        if arr is not None:
+            expect(name, f"{key} sha256", sha_int64(arr), w[f"{key}_sha256"])
+
+
+def check_hierarchy(name, want, h) -> None:
+    import numpy as np
+
+    from repro_torch.hierarchy.query import depth_and_up
+    from repro_torch.hierarchy.serialize import _ARRAY_FIELDS
+
+    depth, up = depth_and_up(np.asarray(h.parent))
+    got = dict(n_nodes=h.n_nodes, n_levels=int(h.levels.size),
+               arrays={f: sha_bytes(getattr(h, f)) for f in _ARRAY_FIELDS},
+               pack_depth_sha256=sha_bytes(depth),
+               pack_up_sha256=sha_bytes(up))
+    expect(name, "hierarchy", got, want["hierarchy"])
+
+
+def real_cli(realdata, name, tsv, flags, dev, tmp, launches, seconds):
+    """One ``--edges ... --emit-hierarchy`` CLI run, every step held to
+    the recorded JAX values.  Launch counts are zeroed just before and
+    read just after.  Returns (launch counts, CLI output, artifact)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import peel as cli
+
+    want = realdata[name]
+    ingest_dir = os.path.join(tmp, f"{name}.ingest")
+    art = os.path.join(tmp, f"{name}.npz")
+    args = cli.build_parser().parse_args(
+        ["--kind", want["kind"], "--side", want["side"], "--parts",
+         str(want["P"]), "--tile-wedges", str(want["tile_wedges"]),
+         "--edges", tsv, "--ingest-dir", ingest_dir, "--emit-hierarchy", art,
+         "--device", dev, *flags])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.run(args)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    res, ti = out["result"], out["tiled_init"]
+    check_ingest(name, want, ingest_dir)
+    sup = {("sup_e" if want["kind"] == "wing" else "sup_u"): ti["sup0"]}
+    check_tiled(name, want, ti["butterflies"], ti["stats"], **sup)
+    got = dict(theta_sha256=out["theta_sha256"],
+               part_sha256=sha_int64(res.part),
+               support_init_sha256=sha_int64(res.support_init),
+               ranges=[int(x) for x in res.ranges],
+               stats={f: int(out[f]) for f in STAT_FIELDS})
+    expect(name, "peel", got, {k: want[k] for k in got})
+    check_hierarchy(name, want, out["hierarchy"])
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    seconds[name] = {k: round(v, 3) for k, v in out["seconds"].items()}
+    log(f"[smoke]   {name} --edges {' '.join(flags)}: ingest, tiled init, "
+        f"θ, stats and hierarchy match the JAX package in {dt:.1f} s; "
+        f"seconds {seconds[name]}; launches {counts}")
+    return counts, out, art
+
+
+def serve_artifact(realdata, name, art, dev, seconds) -> None:
+    """Load an artifact back and serve the recorded query batch on
+    ``dev``; the arrays and the answers must equal the JAX package's."""
+    from repro_torch.hierarchy import HierarchyService, load_hierarchy
+
+    want = realdata[name]
+    h = load_hierarchy(art)
+    check_hierarchy(f"{name} (loaded)", want, h)
+    for key in ("pack_depth", "pack_up"):
+        expect(name, f"loaded {key}", sha_bytes(h.meta[key]),
+               want["hierarchy"][f"{key}_sha256"])
+    svc = HierarchyService(h, device=dev)
+    q = want["queries"]
+    ops, a, b = query_batch_inputs(h.n_entities, h.n_nodes, q["n"], q["seed"])
+    t0 = time.perf_counter()
+    ans = svc.query_batch(ops, a, b)
+    dt = time.perf_counter() - t0
+    expect(name, "served answers sha256", sha_int64(ans),
+           q["answers_sha256"])
+    seconds.setdefault(name, {})["serving"] = round(dt, 4)
+    log(f"[smoke]   {name}: artifact loads back equal; {q['n']} mixed "
+        f"queries served in {dt * 1e3:.1f} ms, answers equal")
+
+
+def phase_real_graphs(realdata, dev, tmp, launches) -> dict:
+    """Phase 7; returns the seconds of each step per run."""
+    from repro_torch.core import csr
+    from repro_torch.data import load_ingested
+    from repro_torch.kernels import ops
+
+    seconds: dict = {}
+    arts = {}
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "real_graphs.json")) as f:
+        sw = json.load(f)["southern_women"]
+    sw_tsv = os.path.join(ROOT, "datasets", "southern_women.tsv")
+    for kind, key in (("wing", "theta_wing_sha256"),
+                      ("tip", "theta_tip_u_sha256")):
+        name = f"southern_women-{kind}"
+        _, out, arts[name] = real_cli(realdata, name, sw_tsv, ["--use-pallas"],
+                                      dev, tmp, launches, seconds)
+        expect(name, "θ sha256 (real_graphs.json)", out["theta_sha256"],
+               sw[key])
+        expect(name, "butterflies (real_graphs.json)",
+               out["tiled_init"]["butterflies"], sw["total_butterflies"])
+
+    # tip-1m from its TSV: host tiled init, fused FD, hierarchy on the card
+    c, _, arts["tip-1m"] = real_cli(
+        realdata, "tip-1m", write_tsv(realdata, "tip-1m", tmp), [], dev, tmp,
+        launches, seconds)
+    if c["fd_round_tip"] == 0:
+        raise AssertionError("tip-1m --edges launched no fd_round_tip")
+
+    # tip-1m's tiled init through wedge_count_tile, at full size
+    want = realdata["tip-1m"]
+    ig = load_ingested(os.path.join(tmp, "tip-1m.ingest"))
+    t0 = time.perf_counter()
+    for _ in csr.iter_wedge_tiles(ig, want["tile_wedges"]):
+        pass
+    host_tiles = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sup_e, sup_u, total, ts = csr.tiled_butterfly_init(
+        ig, tile_wedges=want["tile_wedges"], use_pallas=True, device=dev)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    c = ops.launch_counts()
+    check_tiled("tip-1m tiled init (use_pallas)", want, total, ts,
+                sup_e=sup_e, sup_u=sup_u)
+    if c["wedge_count_tile"] != ts.n_tiles:
+        raise AssertionError(f"tiled init launched wedge_count_tile "
+                             f"{c['wedge_count_tile']} times for "
+                             f"{ts.n_tiles} tiles")
+    for k, v in c.items():
+        launches[k] = launches.get(k, 0) + v
+    seconds["tip-1m tiled init, use_pallas"] = dict(
+        total=round(dt, 3), host_tile_generation=round(host_tiles, 3))
+    log(f"[smoke]   tip-1m tiled_butterfly_init(use_pallas=True): "
+        f"{ts.n_tiles} tiles through wedge_count_tile, sup_e/sup_u equal "
+        f"to the JAX package in {dt:.2f} s, of which generating the tiles "
+        f"on the host alone takes {host_tiles:.2f} s (peak slot matrix "
+        f"{ts.peak_slot_bytes / 1e9:.2f} GB)")
+
+    # the 60k graph through the kernel routes of the CLI
+    for name, cd_kernel in (("wing-60k", "support_update"),
+                            ("tip-60k", "wedge_count")):
+        c, _, arts[name] = real_cli(
+            realdata, name, write_tsv(realdata, name, tmp), ["--use-pallas"],
+            dev, tmp, launches, seconds)
+        for k in ("wedge_count_tile", cd_kernel):
+            if c[k] == 0:
+                raise AssertionError(f"{name} --edges --use-pallas launched "
+                                     f"no {k}")
+
+    for name, art in arts.items():
+        serve_artifact(realdata, name, art, dev, seconds)
+    return seconds
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -430,7 +729,19 @@ def main() -> int:
     with open(os.path.join(ROOT, "tests", "goldens",
                            "torch_fullsize.json")) as f:
         fullsize = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_realdata.json")) as f:
+        realdata = json.load(f)
     smi = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        return run_phases(fullsize, realdata, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(fullsize, realdata, dev, smi, tmp) -> int:
+    import torch
 
     with Phase("1-setup"):
         from repro_torch.kernels import _build, ops
@@ -450,7 +761,7 @@ def main() -> int:
 
     with Phase("2-kernels"):
         cache: dict = {}
-        rows = phase_kernels(fullsize, dev, cache)
+        rows = phase_kernels(fullsize, realdata, dev, cache, tmp)
 
     with Phase("3-goldens"):
         phase_goldens(dev)
@@ -487,6 +798,10 @@ def main() -> int:
 
     with Phase("6-fd-drivers"):
         fd_times = phase_fd_drivers(fullsize, dev, cache)
+    cache.clear()
+
+    with Phase("7-real-graphs"):
+        real_seconds = phase_real_graphs(realdata, dev, tmp, launches)
 
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
@@ -498,9 +813,10 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=int(launches[name]), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="bytes", library_ms=None,
+            bound_by="bytes", library_ms=r.get("library_ms"),
             bytes_per_call=r["bytes_per_call"]))
-    log(json.dumps(dict(phase_seconds=Phase.seconds, fd_driver_seconds=fd_times)))
+    log(json.dumps(dict(phase_seconds=Phase.seconds, fd_driver_seconds=fd_times,
+                        real_graph_seconds=real_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ per-row reductions through the hand-written kernels
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,12 @@ __all__ = [
     "PaddedCSR",
     "build_wedges",
     "pad_segments",
+    "TileLayout",
+    "TileStats",
+    "iter_wedge_tiles",
+    "tile_layout",
+    "tile_slot_matrix",
+    "tiled_butterfly_init",
     "pack_wedge_slots",
     "directed_pair_incidence",
     "pack_tip_slots",
@@ -142,6 +148,218 @@ def wedge_workload(g: BipartiteGraph) -> Tuple[np.ndarray, np.ndarray]:
     wu = np.bincount(g.edges[:, 0], weights=dv[g.edges[:, 1]], minlength=g.n_u)
     wv = np.bincount(g.edges[:, 1], weights=du[g.edges[:, 0]], minlength=g.n_v)
     return wu.astype(np.int64), wv.astype(np.int64)
+
+
+# =====================================================================
+# Bounded-tile wedge enumeration + ⋈init (the out-of-core counting path)
+# =====================================================================
+@dataclasses.dataclass
+class TileStats:
+    """What the tiled ⋈init did: tile, wedge and pair counts, the
+    largest tile and the largest kernel slot matrix."""
+
+    n_tiles: int = 0
+    n_wedges: int = 0          # Σ over tiles (== untiled wedge count)
+    n_pairs: int = 0           # Σ distinct pairs (tiles don't split pairs)
+    peak_tile_wedges: int = 0  # largest single tile
+    peak_slot_bytes: int = 0   # largest slot matrix, n_rows·width·4 (0 = host path)
+
+
+def iter_wedge_tiles(source, tile_wedges: int = 1 << 20):
+    """Yield wedge batches ``(a, b, e1, e2)`` of ≈ ``tile_wedges`` each
+    (host numpy int64; a copy of the JAX package's generator).
+
+    The full wedge list is O(Σ_v C(d_v, 2)); this never materializes it.
+    Wedges are grouped by their **smaller U endpoint** ``a`` and a tile
+    covers a contiguous U range chosen greedily from the exact
+    per-vertex wedge counts, so every wedge of pair {a, b} lands in one
+    tile and per-tile pair counts are globally complete.  A hub vertex
+    whose own wedge count exceeds ``tile_wedges`` is a tile by itself.
+
+    ``source`` is anything with ``n_u``/``n_v``/``m`` and ``csr_v()``
+    (``BipartiteGraph`` or ``data.ingest.IngestedGraph``, whose CSR is
+    memory-mapped, so the graph itself stays on disk).
+    """
+    off, nbr, eid = source.csr_v()
+    n_u = source.n_u
+    if nbr.size == 0:
+        return
+    deg = np.diff(off)
+    pos = np.arange(nbr.size, dtype=np.int64)
+    center = np.repeat(np.arange(source.n_v, dtype=np.int64), deg)
+    tail = (off[center + 1] - pos - 1).astype(np.int64)
+    # exact wedge count per minimum endpoint, and V-CSR positions
+    # grouped by that endpoint (stable sort keeps center order)
+    w_u = np.bincount(nbr, weights=tail, minlength=n_u).astype(np.int64)
+    by_u = np.argsort(nbr, kind="stable")
+    eoff = np.zeros(n_u + 1, dtype=np.int64)
+    np.cumsum(np.bincount(nbr, minlength=n_u), out=eoff[1:])
+    cw = np.cumsum(w_u)
+    u0 = 0
+    base = 0
+    while u0 < n_u:
+        u1 = int(np.searchsorted(cw, base + tile_wedges, side="right"))
+        u1 = min(max(u1, u0 + 1), n_u)
+        base = int(cw[u1 - 1])
+        P = by_u[eoff[u0]:eoff[u1]]
+        u0 = u1
+        t = tail[P]
+        total = int(t.sum())
+        if total == 0:
+            continue
+        e1_pos = np.repeat(P, t)
+        starts = np.cumsum(t) - t
+        k = np.arange(total, dtype=np.int64) - np.repeat(starts, t)
+        e2_pos = e1_pos + 1 + k
+        yield (
+            nbr[e1_pos].astype(np.int64),
+            nbr[e2_pos].astype(np.int64),
+            eid[e1_pos].astype(np.int64),
+            eid[e2_pos].astype(np.int64),
+        )
+
+
+def tiled_butterfly_init(
+    source,
+    tile_wedges: int = 1 << 20,
+    use_pallas: bool = False,
+    width: int = 512,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray, int, TileStats]:
+    """⋈init under bounded memory: (sup_e, sup_u, total, stats).
+
+    Streams :func:`iter_wedge_tiles` and reduces each tile to per-pair
+    wedge counts W; a pair's wedges never straddle tiles, so the int64
+    outputs are bit-identical to :func:`edge_butterflies0` /
+    :func:`vertex_butterflies_csr` / :func:`total_butterflies_csr`.
+
+    Without ``use_pallas`` this is the JAX package's host path (numpy).
+    With it (the JAX package's name for the kernel route) each tile runs
+    in torch on ``device``: the wedge keys are sorted there, the slot
+    matrix — one ``width``-wide int32 row per pair segment, a hub pair
+    spanning several rows — is allocated at its ``_row_bucket`` size and
+    filled by a scatter of ones (the pair key and two edge ids, 24
+    bytes per wedge, cross to the card, never the mostly-zero matrix),
+    ``wedge_count_tile`` sums the rows
+    exactly in int32, and the per-pair totals and the four support
+    scatters are int64 ``index_add_`` — no 2²⁴ ceiling anywhere.  Only
+    the three results come back to the host.
+    """
+    n_u, m = source.n_u, source.m
+    stats = TileStats()
+    tiles = iter_wedge_tiles(source, tile_wedges)
+    if use_pallas:
+        from .peel import resolve_device
+
+        return _tiled_init_device(tiles, n_u, m, width,
+                                  resolve_device(device), stats)
+    sup_e = np.zeros(m, dtype=np.int64)
+    sup_u = np.zeros(n_u, dtype=np.int64)
+    total = 0
+    for a, b, e1, e2 in tiles:
+        nk = a.size
+        key = a * n_u + b
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        newp = np.empty(nk, dtype=bool)
+        newp[0] = True
+        np.not_equal(ks[1:], ks[:-1], out=newp[1:])
+        starts_p = np.flatnonzero(newp)
+        pid = np.cumsum(newp) - 1
+        W = np.diff(np.append(starts_p, nk)).astype(np.int64)
+        bf = W * (W - 1) // 2
+        np.add.at(sup_u, ks[starts_p] // n_u, bf)
+        np.add.at(sup_u, ks[starts_p] % n_u, bf)
+        total += int(bf.sum())
+        contrib = W[pid] - 1
+        np.add.at(sup_e, e1[order], contrib)
+        np.add.at(sup_e, e2[order], contrib)
+        _tile_done(stats, nk, starts_p.size)
+    return sup_e, sup_u, total, stats
+
+
+def _tile_done(stats: TileStats, n_wedges: int, n_pairs: int) -> None:
+    stats.n_tiles += 1
+    stats.n_wedges += n_wedges
+    stats.n_pairs += n_pairs
+    stats.peak_tile_wedges = max(stats.peak_tile_wedges, n_wedges)
+
+
+class TileLayout(NamedTuple):
+    """One tile's wedges sorted by pair on the device, and the slot of
+    each wedge in the tile's slot matrix (see :func:`tile_layout`)."""
+
+    keys: torch.Tensor           # (nk,) int64 pair key a·n_u + b, sorted
+    order: torch.Tensor          # (nk,) int64 the stable sort permutation
+    pair_start: torch.Tensor     # (n_pairs,) int64 first sorted wedge of each pair
+    pair_of: torch.Tensor        # (nk,) int64 pair index of each sorted wedge
+    rows_per_pair: torch.Tensor  # (n_pairs,) int64 ceil(W / width)
+    flat: torch.Tensor           # (nk,) int64 slot of each wedge, row·wpad + col
+    n_rows: int                  # slot rows in use
+    wpad: int                    # row stride: width rounded up to 128
+
+
+def tile_layout(a: np.ndarray, b: np.ndarray, n_u: int, width: int,
+                device) -> TileLayout:
+    """Sort one tile's wedges (``iter_wedge_tiles``) by pair key on
+    ``device`` and lay each pair's wedges out as ``width``-wide slot
+    rows (a hub pair spans several rows)."""
+    dev = torch.device(device)
+    i64 = torch.int64
+    nk = a.size
+    ks, order = torch.sort(torch.from_numpy(a * n_u + b).to(dev), stable=True)
+    newp = torch.ones(nk, dtype=torch.bool, device=dev)
+    torch.ne(ks[1:], ks[:-1], out=newp[1:])
+    starts_p = newp.nonzero().squeeze(1)
+    pid = torch.cumsum(newp, 0) - 1
+    cnt = torch.diff(starts_p, append=starts_p.new_tensor([nk]))
+    within = torch.arange(nk, dtype=i64, device=dev) - starts_p[pid]
+    rows_per_pair = (cnt + (width - 1)) // width
+    row_base = torch.cumsum(rows_per_pair, 0) - rows_per_pair
+    wpad = -(-width // 128) * 128   # the kernel wrapper's column multiple
+    flat = (row_base[pid] + within // width) * wpad + within % width
+    return TileLayout(ks, order, starts_p, pid, rows_per_pair, flat,
+                      int(rows_per_pair.sum()), wpad)
+
+
+def tile_slot_matrix(lay: TileLayout) -> torch.Tensor:
+    """The tile's int32 0/1 slot matrix, built where the layout lies:
+    ``_row_bucket(n_rows, 8)`` rows of ``wpad`` slots, zeros, then a
+    scatter of ones at each wedge's slot."""
+    slots = torch.zeros((kops._row_bucket(lay.n_rows, 8), lay.wpad),
+                        dtype=torch.int32, device=lay.flat.device)
+    slots.view(-1)[lay.flat] = 1
+    return slots
+
+
+def _tiled_init_device(tiles, n_u, m, width, dev, stats):
+    """The kernel route of :func:`tiled_butterfly_init`, one tile at a
+    time on ``dev`` (int64 throughout except the int32 row partials)."""
+    i64 = torch.int64
+    sup_e = torch.zeros(m, dtype=i64, device=dev)
+    sup_u = torch.zeros(n_u, dtype=i64, device=dev)
+    total = torch.zeros((), dtype=i64, device=dev)
+    for a, b, e1, e2 in tiles:
+        lay = tile_layout(a, b, n_u, width, dev)
+        stats.peak_slot_bytes = max(stats.peak_slot_bytes,
+                                    lay.n_rows * width * 4)
+        row_sums = kops.tile_row_counts(tile_slot_matrix(lay), lay.n_rows)
+        n_pairs_t = lay.pair_start.numel()
+        row_to_pair = torch.repeat_interleave(
+            torch.arange(n_pairs_t, dtype=i64, device=dev), lay.rows_per_pair)
+        W = torch.zeros(n_pairs_t, dtype=i64, device=dev).index_add_(
+            0, row_to_pair, row_sums.to(i64))
+        bf = W * (W - 1) // 2
+        pk = lay.keys[lay.pair_start]
+        sup_u.index_add_(0, pk // n_u, bf)
+        sup_u.index_add_(0, pk % n_u, bf)
+        total += bf.sum()
+        contrib = W[lay.pair_of] - 1
+        sup_e.index_add_(0, torch.from_numpy(e1).to(dev)[lay.order], contrib)
+        sup_e.index_add_(0, torch.from_numpy(e2).to(dev)[lay.order], contrib)
+        _tile_done(stats, a.size, n_pairs_t)
+    return (sup_e.cpu().numpy(), sup_u.cpu().numpy(), int(total.item()),
+            stats)
 
 
 # =====================================================================

@@ -26,6 +26,7 @@ batched loop already does for partitions that drain before the last.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -94,13 +95,16 @@ class PeelStats:
 class PeelResult:
     """Everything a decomposition produced: θ, the CD partition of each
     entity, the range boundaries θ(1..P+1), the ⋈init snapshot and the
-    engine-tagged :class:`PeelStats`."""
+    engine-tagged :class:`PeelStats`; ``seconds`` holds the host-clock
+    seconds of the two phases (``cd``, ``fd``) and is no part of the
+    provenance."""
 
     theta: np.ndarray         # entity numbers
     part: np.ndarray          # CD partition id per entity
     ranges: np.ndarray        # (P+1,) range boundaries
     support_init: np.ndarray  # ⋈init vector
     stats: PeelStats
+    seconds: dict = dataclasses.field(default_factory=dict)
 
     def provenance(self) -> dict:
         """Everything besides θ a downstream consumer needs to rebuild
@@ -314,11 +318,14 @@ def decompose(
     """Run both phases of one :class:`PeelSpec` and assemble the
     :class:`PeelResult` — the driver behind ``tip_decomposition`` and
     ``wing_decomposition``."""
+    t0 = time.perf_counter()
     part, sup_init, ranges, p_eff = cd_loop(spec, P, stats, target=target)
+    t1 = time.perf_counter()
     theta = np.zeros(spec.n, dtype=np.int64)
     run_fd(spec, part, sup_init, theta, p_eff, stats, fd_driver=fd_driver)
     return PeelResult(theta=theta, part=part, ranges=ranges,
-                      support_init=sup_init, stats=stats)
+                      support_init=sup_init, stats=stats,
+                      seconds=dict(cd=t1 - t0, fd=time.perf_counter() - t1))
 
 
 # =====================================================================

@@ -13,6 +13,7 @@ import torch
 
 __all__ = [
     "pair_wedge_counts_ref",
+    "tile_row_counts_ref",
     "support_update_ref",
     "fd_round_wing_ref",
     "fd_round_tip_ref",
@@ -25,6 +26,12 @@ def pair_wedge_counts_ref(slots: torch.Tensor):
     """Row sums W of a slot matrix and the f32 estimate C(W, 2)."""
     w = slots.to(torch.float32).sum(dim=1)
     return w, w * (w - 1.0) * 0.5
+
+
+def tile_row_counts_ref(slots: torch.Tensor) -> torch.Tensor:
+    """Exact int32 row sums of an int32 0/1 slot matrix (the tile mode
+    of the tiled ⋈init); a row sum is at most the width."""
+    return slots.sum(dim=1, dtype=torch.int32)
 
 
 def support_update_ref(pe1, pe2, alive, W):

@@ -2,13 +2,21 @@
 
 The same flags as the JAX package's ``python -m repro.launch.peel`` for
 ``--kind/--engine/--fd-driver/--fused-fd/--use-pallas/--parts/--dataset/
---n-u/--n-v/--m/--seed/--side/--out``, plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain versions of the kernels).  It prints the
-same ``[peel] theta: ... sha256=...`` line, so a run of each CLI on the
-same flags can be compared digest for digest::
+--edges/--tile-wedges/--ingest-dir/--n-u/--n-v/--m/--seed/--side/--out/
+--emit-hierarchy``, plus ``--device`` (default ``cuda``; ``cpu`` runs
+the plain versions of the kernels).  It prints the same ``[peel] theta:
+... sha256=...`` line, so a run of each CLI on the same flags can be
+compared digest for digest::
 
     PYTHONPATH=src python -m repro_torch.launch.peel --kind tip
     PYTHONPATH=src python -m repro_torch.launch.peel --kind wing --engine csr
+    PYTHONPATH=src python -m repro_torch.launch.peel --kind tip \
+        --edges datasets/southern_women.tsv --emit-hierarchy sw_tip.npz
+
+``--edges`` is the real-graph path: out-of-core ingest, the tiled ⋈init
+(through the ``wedge_count_tile`` kernel with ``--use-pallas``), then the
+same engines fed through ``sup0``.  ``--emit-hierarchy`` builds the
+hierarchy on the device and writes the versioned npz artifact.
 
 Unsupported flag combinations exit with the JAX CLI's error texts; the
 engines not ported yet (``beindex``, the wing default, and ``dense``)
@@ -20,6 +28,7 @@ import argparse
 import hashlib
 import json
 import sys
+import time
 
 _NOT_PORTED = {
     "beindex": "ROADMAP queue 1, item 8",
@@ -39,7 +48,15 @@ def _validate(args) -> None:
     """Resolve the per-kind engine and fused-FD defaults as the JAX CLI
     does for one device, then reject unsupported combinations."""
     if args.engine is None:
-        args.engine = "beindex" if args.kind == "wing" else "csr"
+        # real graphs default to csr, the engine whose memory is
+        # wedge-bounded like the tiled ⋈init they arrive through
+        if args.edges:
+            args.engine = "csr"
+        else:
+            args.engine = "beindex" if args.kind == "wing" else "csr"
+    if args.edges and args.dataset:
+        raise LaunchError(
+            "--edges and --dataset are exclusive graph sources")
     if args.kind == "tip" and args.engine == "beindex":
         raise LaunchError(
             "tip peels vertices — there is no BE-Index tip engine; "
@@ -77,15 +94,92 @@ def sha256_int64(a) -> str:
     ).hexdigest()
 
 
+def _ingest(args, seconds: dict):
+    """The ``--edges`` front half: ingest out of core, then the tiled
+    ⋈init.  Returns (graph, sup0, tiled-init summary) and fills
+    ``seconds``."""
+    from types import SimpleNamespace
+
+    from ..core import csr
+    from ..data import ingest_edges
+
+    t0 = time.perf_counter()
+    ig = ingest_edges(args.edges, out_dir=args.ingest_dir)
+    print(f"[peel] ingested {args.edges}: |U|={ig.n_u} "
+          f"|V|={ig.n_v} |E|={ig.m}")
+    t1 = time.perf_counter()
+    if args.kind == "tip" and args.side == "v":
+        # wedge centers must sit on the peeled side's opposite
+        # partition: transpose the CSR view, not the data
+        src = SimpleNamespace(n_u=ig.n_v, n_v=ig.n_u, m=ig.m,
+                              csr_v=ig.csr_u)
+    else:
+        src = ig
+    sup_e, sup_u, total_bf, tstats = csr.tiled_butterfly_init(
+        src, tile_wedges=args.tile_wedges, use_pallas=args.use_pallas,
+        device=args.device)
+    print(f"[peel] tiled init: butterflies={total_bf} "
+          f"tiles={tstats.n_tiles} wedges={tstats.n_wedges} "
+          f"peak_tile_wedges={tstats.peak_tile_wedges}")
+    seconds.update(ingest=t1 - t0, tiled_init=time.perf_counter() - t1)
+    sup0 = sup_e if args.kind == "wing" else sup_u
+    return ig.as_graph(), sup0, dict(butterflies=total_bf, stats=tstats,
+                                     sup0=sup0)
+
+
+def _emit_hierarchy(args, g, result, seconds: dict):
+    """Build the dense-subgraph hierarchy from the decomposition on the
+    device and write the versioned artifact; returns the Hierarchy."""
+    import numpy as np
+
+    from ..hierarchy import (build_hierarchy, density_profile,
+                             save_hierarchy, top_densest_leaves)
+
+    timings: dict = {}
+    t0 = time.perf_counter()
+    h = build_hierarchy(g, result, kind=args.kind, side=args.side,
+                        device=args.device, timings=timings)
+    dt = time.perf_counter() - t0
+    save_hierarchy(args.emit_hierarchy, h)
+    seconds.update(hierarchy_labels=timings["labels"],
+                   hierarchy_incidence=timings.get("incidence", 0.0),
+                   hierarchy_assembly=timings["assembly"])
+    lv = h.levels
+    print(f"[peel] hierarchy: {h.n_nodes} nodes over {lv.size} levels "
+          f"built in {dt * 1e3:.1f} ms (labels {timings['labels']:.3f} s "
+          f"in {timings.get('iterations', 0)} iterations, assembly "
+          f"{timings['assembly']:.3f} s) -> {args.emit_hierarchy}")
+    if lv.size:
+        prof = density_profile(h, int(lv[0]))
+        top = top_densest_leaves(h, 3)
+        print(f"[peel] k={int(lv[0])}: {prof['n_components']} components; "
+              f"densest leaves: "
+              f"{np.round(top['density'], 3).tolist()} "
+              f"at k={top['level'].tolist()}")
+    return h
+
+
 def run(args, g=None) -> dict:
     """Peel ``g`` (default: the graph the flags describe) and print the
     JAX CLI's summary lines.  Returns the stats row with
-    ``theta_sha256``; ``stats_out["result"]`` holds the PeelResult."""
+    ``theta_sha256``; ``stats_out["result"]`` holds the PeelResult,
+    ``stats_out["seconds"]`` the seconds of each step (``ingest``,
+    ``tiled_init``, ``peel`` — of which ``cd`` and ``fd`` are the two
+    phases, the rest the engine's setup —, ``hierarchy_labels`` — of which
+    ``hierarchy_incidence`` is the host wedge enumeration —,
+    ``hierarchy_assembly``, as far as the run had them), with
+    ``--edges`` ``stats_out["tiled_init"]`` the tiled init's total
+    butterflies, TileStats and ⋈init vector, and with ``--emit-hierarchy``
+    ``stats_out["hierarchy"]`` the Hierarchy."""
     from ..core.graph import paper_proxy_dataset, powerlaw_bipartite
     from ..core.peel import tip_decomposition, wing_decomposition
 
     _validate(args)
-    if g is None:
+    seconds: dict = {}
+    sup0 = tiled = None
+    if args.edges:
+        g, sup0, tiled = _ingest(args, seconds)
+    elif g is None:
         if args.dataset:
             g = paper_proxy_dataset(args.dataset)
         else:
@@ -94,7 +188,8 @@ def run(args, g=None) -> dict:
 
     common = dict(P=args.parts, engine=args.engine, fd_driver=args.fd_driver,
                   use_pallas=args.use_pallas, fused=args.fused_fd,
-                  device=args.device)
+                  sup0=sup0, device=args.device)
+    t0 = time.perf_counter()
     if args.kind == "wing":
         res = wing_decomposition(g, **common)
         s = res.stats
@@ -107,16 +202,25 @@ def run(args, g=None) -> dict:
         print(f"[peel] engine={s.engine} side={s.side} "
               f"rho_cd={s.rho_cd} rho_fd_max={s.rho_fd_max} "
               f"recounts={s.recounts}")
+    seconds["peel"] = time.perf_counter() - t0
+    seconds.update(res.seconds)
     theta = res.theta
     stats_out = s.as_dict()
     stats_out["theta_sha256"] = sha256_int64(theta)
     print(f"[peel] theta: max={int(theta.max()) if theta.size else 0} "
           f"levels={len(set(theta.tolist()))} "
           f"sha256={stats_out['theta_sha256']}")
+    h = (_emit_hierarchy(args, g, res, seconds) if args.emit_hierarchy
+         else None)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(theta=theta.tolist(), stats=stats_out), f)
     stats_out["result"] = res
+    stats_out["seconds"] = seconds
+    if tiled is not None:
+        stats_out["tiled_init"] = tiled
+    if h is not None:
+        stats_out["hierarchy"] = h
     return stats_out
 
 
@@ -131,6 +235,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="entity universe to peel: edges (wing) or "
                          "vertices (tip)")
     ap.add_argument("--dataset", default=None)
+    ap.add_argument("--edges", default=None, metavar="PATH",
+                    help="peel a real graph: KONECT/SNAP-style edge list "
+                         "(%% or # comments, 1- or 0-based ids, negative "
+                         "third column = deletion), ingested out of core "
+                         "and counted in bounded wedge tiles "
+                         "(--tile-wedges); exclusive with --dataset")
+    ap.add_argument("--tile-wedges", type=int, default=1 << 20,
+                    help="wedge-tile budget of the --edges counting pass "
+                         "(default 2^20)")
+    ap.add_argument("--ingest-dir", default=None, metavar="DIR",
+                    help="cache directory of the --edges ingest (default: "
+                         "<edges>.ingest next to the input)")
     ap.add_argument("--n-u", type=int, default=400)
     ap.add_argument("--n-v", type=int, default=200)
     ap.add_argument("--m", type=int, default=2000)
@@ -153,10 +269,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run CD updates through the support_update / "
                          "wedge_count kernels (and, for wing "
                          "--fd-driver vmapped --no-fused-fd, the FD "
-                         "updates); the JAX CLI's flag name")
+                         "updates), and the --edges tiled init through "
+                         "wedge_count_tile; the JAX CLI's flag name")
     ap.add_argument("--side", default="u")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--emit-hierarchy", default=None, metavar="PATH",
+                    help="build the dense-subgraph hierarchy from the "
+                         "decomposition and save it as a versioned npz "
+                         "artifact (repro_torch.hierarchy.load_hierarchy; "
+                         "the JAX package loads it too)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")

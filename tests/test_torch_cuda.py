@@ -20,7 +20,7 @@ from repro_torch.core.distributed import (pack_fd_partitions_csr,
 from repro_torch.core.graph import powerlaw_bipartite, random_bipartite
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.support_update import support_update
-from repro_torch.kernels.wedge_count import wedge_count
+from repro_torch.kernels.wedge_count import wedge_count, wedge_count_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +134,90 @@ def test_golden_cells_with_fused_kernels(card):
         assert res.theta.tolist() == goldens[key]["theta"], key
         assert res.stats.rho_fd_total == goldens[key]["rho_fd_total"], key
         assert res.stats.updates == goldens[key]["updates"], key
+
+
+def _tile_slots(rng, n_rows, width, hub_rows=4):
+    """Seeded int32 0/1 slot rows: sparse rows, a few full (hub) rows."""
+    slots = (rng.random((n_rows, width)) < 0.05).astype(np.int32)
+    slots[rng.choice(n_rows, size=min(hub_rows, n_rows), replace=False)] = 1
+    return slots
+
+
+@pytest.mark.parametrize("n_rows,width", [(1, 512), (37, 512), (1000, 512),
+                                          (300, 64), (50, 3), (129, 5)])
+def test_wedge_count_tile_kernel_equals_plain(card, n_rows, width):
+    slots = _tile_slots(np.random.default_rng(n_rows), n_rows, width)
+    t = torch.from_numpy(slots).to(card)
+    # padded as the tiled init pads: bucketed rows, rows below n unread
+    padded = torch.zeros((ops._row_bucket(n_rows, 8) + 8, width),
+                         dtype=torch.int32, device=card)
+    padded[:n_rows] = t
+    padded[n_rows:] = 7   # never read by the kernel
+    before = ops.launch_counts()["wedge_count_tile"]
+    got = wedge_count_tile(padded, n_rows)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["wedge_count_tile"] - before == 1
+    assert torch.equal(got, ref.tile_row_counts_ref(t))
+    assert got.tolist() == slots.sum(axis=1).tolist()
+    # a matrix off the 16-byte boundary takes the scalar loads
+    buf = torch.zeros(n_rows * width + 1, dtype=torch.int32, device=card)
+    view = buf[1:].view(n_rows, width)
+    view.copy_(t)
+    assert torch.equal(wedge_count_tile(view), ref.tile_row_counts_ref(t))
+
+
+def test_wedge_count_tile_rejects_what_the_kernel_does_not_take(card):
+    x = torch.zeros((8, 128), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        wedge_count_tile(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        wedge_count_tile(torch.zeros((128, 8), dtype=torch.int32,
+                                     device=card).t())
+    with pytest.raises(ValueError, match="outside"):
+        wedge_count_tile(x, 9)
+
+
+@pytest.mark.parametrize("tile_wedges,width", [(2000, 512), (700, 64)])
+def test_tiled_init_kernel_route_equals_host_path(card, tile_wedges, width):
+    g = GRAPHS["pl800"]()
+    host = csr.tiled_butterfly_init(g, tile_wedges=tile_wedges)
+    before = ops.launch_counts()["wedge_count_tile"]
+    dev = csr.tiled_butterfly_init(g, tile_wedges=tile_wedges,
+                                   use_pallas=True, width=width, device=card)
+    assert np.array_equal(dev[0], host[0]) and np.array_equal(dev[1], host[1])
+    assert dev[2] == host[2] and dev[3].n_tiles == host[3].n_tiles > 1
+    assert dev[3].peak_slot_bytes > 0
+    assert ops.launch_counts()["wedge_count_tile"] - before == dev[3].n_tiles
+
+
+def test_hierarchy_and_service_on_the_card_equal_the_cpu(card):
+    from repro_torch.hierarchy import (HierarchyService, build_hierarchy,
+                                       lca_entities, subgraph_at)
+    from repro_torch.hierarchy.serialize import _ARRAY_FIELDS
+
+    g = GRAPHS["pl800"]()
+    for kind in ("wing", "tip"):
+        fn = peel.wing_decomposition if kind == "wing" else \
+            peel.tip_decomposition
+        res = fn(g, P=8, device="cpu")
+        hc = build_hierarchy(g, res, kind=kind, device="cpu")
+        hg = build_hierarchy(g, res, kind=kind, device=card)
+        for f in _ARRAY_FIELDS:
+            assert np.array_equal(getattr(hg, f), getattr(hc, f)), (kind, f)
+        rng = np.random.default_rng(0)
+        n = 3000
+        ops_ = rng.integers(0, 5, n).astype(np.int32)
+        a = np.where(ops_ == 4, rng.integers(0, hc.n_nodes, n),
+                     rng.integers(0, hc.n_entities, n)).astype(np.int32)
+        b = rng.integers(0, hc.n_entities, n).astype(np.int32)
+        sc = HierarchyService(hc, device="cpu")
+        sg = HierarchyService(hc, device=card)
+        assert np.array_equal(sg.query_batch(ops_, a, b),
+                              sc.query_batch(ops_, a, b))
+        nodes = np.arange(hc.n_nodes)
+        assert np.array_equal(sg.subgraph_masks(nodes),
+                              sc.subgraph_masks(nodes))
+        assert torch.equal(lca_entities(sg.forest, a, b).cpu(),
+                           lca_entities(sc.forest, a, b))
+        assert torch.equal(subgraph_at(sg.forest, [0]).cpu(),
+                           subgraph_at(sc.forest, [0]))

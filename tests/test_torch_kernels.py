@@ -192,3 +192,47 @@ def test_state_from_numpy_keeps_arrays_and_values():
     assert st["sizes"] == (2, 3)
     assert st["a"].dtype == torch.int32
     np.testing.assert_array_equal(st["a"].numpy(), packed["a"])
+
+
+# ------------------------------------------------- wedge_count_tile (tile mode)
+def test_row_bucket_matches_reference():
+    for mult in (8, 128):
+        got = [ops._row_bucket(n, mult) for n in range(0, 5001)]
+        want = [jops._row_bucket(n, mult) for n in range(0, 5001)]
+        assert got == want, mult
+
+
+def _tile_slots(seed, n_rows, width):
+    """Seeded int32 0/1 slot rows with a few full (hub) rows."""
+    rng = np.random.default_rng(seed)
+    slots = (rng.random((n_rows, width)) < 0.1).astype(np.int32)
+    slots[rng.choice(n_rows, size=min(3, n_rows), replace=False)] = 1
+    return slots
+
+
+@pytest.mark.parametrize("seed,n_rows,width", [(0, 1, 512), (1, 37, 512),
+                                               (2, 150, 512), (3, 61, 64),
+                                               (4, 20, 130)])
+def test_tile_row_counts_matches_reference(seed, n_rows, width):
+    slots = _tile_slots(seed, n_rows, width)
+    want = jops.tile_row_counts(slots, interpret=True)
+    got = ops.tile_row_counts(torch.from_numpy(slots))
+    assert got.dtype == torch.int32 and got.shape == (n_rows,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # already bucketed, as the tiled init allocates it: rows past n unread
+    rows = ops._row_bucket(n_rows, 8)
+    padded = torch.full((rows, -(-width // 128) * 128), 5, dtype=torch.int32)
+    padded[:n_rows] = 0
+    padded[:n_rows, :width] = torch.from_numpy(slots)
+    np.testing.assert_array_equal(
+        ops.tile_row_counts(padded, n_rows).numpy(), np.asarray(want))
+
+
+def test_tile_row_counts_plain_on_cpu_and_kernel_or_raise_elsewhere():
+    ops.reset_launch_counts()
+    ops.tile_row_counts(torch.from_numpy(_tile_slots(0, 9, 128)))
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    m = torch.zeros((8, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.tile_row_counts(m)
+    assert ops.launch_counts()["wedge_count_tile"] == 0

@@ -2,14 +2,17 @@
 
 Both CLIs print ``[peel] theta: ... sha256=<θ digest>``; at the CLI's
 default graph they must print the same line for ``--kind tip`` and for
-``--kind wing --engine csr`` (the port with ``--device cpu``).  Also: the
-port's CLI rejects what the JAX CLI rejects, with the same text.
+``--kind wing --engine csr`` (the port with ``--device cpu``), and on
+``--edges datasets/southern_women.tsv --emit-hierarchy`` the same
+ingest, tiled-init and θ lines and equal artifacts.  Also: the port's
+CLI rejects what the JAX CLI rejects, with the same text.
 """
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,3 +65,45 @@ def test_port_cli_names_the_roadmap_item_of_unported_engines():
         tcli.main(["--kind", "wing", "--device", "cpu"])
     with pytest.raises(tcli.LaunchError, match="ROADMAP queue 1, item 9"):
         tcli.main(["--kind", "tip", "--engine", "dense", "--device", "cpu"])
+
+
+DATASET = os.path.join(ROOT, "datasets", "southern_women.tsv")
+
+
+@pytest.mark.parametrize("flags", [("--kind", "wing"),
+                                   ("--kind", "tip", "--side", "v")])
+def test_port_cli_edges_and_hierarchy_match_the_reference(tmp_path, flags):
+    from repro.hierarchy import load_hierarchy as jload
+    from repro_torch.hierarchy import load_hierarchy as tload
+    from repro_torch.hierarchy.serialize import _ARRAY_FIELDS
+
+    common = ("--edges", DATASET, "--tile-wedges", "64")
+    ref = _cli("repro.launch.peel", *flags, *common,
+               "--ingest-dir", str(tmp_path / "j.ingest"),
+               "--emit-hierarchy", str(tmp_path / "j.npz"))
+    port = _cli("repro_torch.launch.peel", *flags, *common, "--use-pallas",
+                "--ingest-dir", str(tmp_path / "t.ingest"),
+                "--emit-hierarchy", str(tmp_path / "t.npz"),
+                "--device", "cpu")
+    assert ref.returncode == 0, ref.stderr
+    assert port.returncode == 0, port.stderr
+    assert _theta_line(port) == _theta_line(ref)
+    for prefix in ("[peel] ingested", "[peel] tiled init", "[peel] graph"):
+        lines = [[ln for ln in out.stdout.splitlines()
+                  if ln.startswith(prefix)] for out in (port, ref)]
+        assert lines[0] == lines[1] and len(lines[0]) == 1, prefix
+    # the ingest caches went where they were sent, none beside the dataset
+    assert os.path.exists(tmp_path / "t.ingest" / "meta.json")
+    assert not os.path.exists(DATASET + ".ingest")
+    t, j = tload(str(tmp_path / "t.npz")), jload(str(tmp_path / "j.npz"))
+    for f in _ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f),
+                                      err_msg=f)
+    assert t.meta["stats"]["rho_cd"] == j.meta["stats"]["rho_cd"]
+
+
+def test_port_cli_rejects_edges_with_dataset():
+    from repro_torch.launch import peel as tcli
+
+    with pytest.raises(tcli.LaunchError, match="exclusive graph sources"):
+        tcli.main(["--edges", DATASET, "--dataset", "fr", "--device", "cpu"])

@@ -30,7 +30,8 @@ _BANNED = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s]|$)", re.M)
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.launch.peel, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.hierarchy, "
+            "repro_torch.data; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'repro.')) "
             "or m == 'repro'))")
