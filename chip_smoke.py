@@ -7,8 +7,9 @@ Run from the repository root, with no arguments::
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
-1. setup — build the five CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` (one ``nvcc`` per source, in parallel) and print the card.
+1. setup — build the nine CUDA kernels from the five sources in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel) and print the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes: ``fd_round_wing``/``fd_round_tip`` on the
    packed wing-60k / tip-1m partition stacks, round by round to the
@@ -18,9 +19,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    from the ingested TSV.  All comparisons are ``torch.equal`` (every
    output is an exact integer).  Times each, and the one PyTorch call
    that computes the same function where there is one.
-3. goldens — every csr cell of ``tests/goldens/peel_goldens.json``
-   (fused kernels on for the device/vmapped drivers), plus kernel-route
-   reruns (``use_pallas``) of one wing and one tip graph.
+3. goldens — every cell of ``tests/goldens/peel_goldens.json``: the 72
+   csr cells (fused kernels on for the device/vmapped drivers), the 8
+   beindex and 24 dense cells, plus kernel-route reruns
+   (``use_pallas``) of one wing and one tip graph.
 4. tip-1m and 5. wing-60k — the CLI's main path (``repro_torch.launch.
    peel``: the fused device driver, then vmapped and ``--use-pallas``),
    θ and PeelStats held to the JAX package's values in
@@ -38,6 +40,19 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    card.  Every step is held to ``tests/goldens/torch_realdata.json``
    (recorded by ``tests/goldens/record_torch_realdata.py``) and
    ``tests/goldens/real_graphs.json``.
+8. engines — the dense and beindex engines and the four butterfly
+   kernels at full size, held to ``tests/goldens/torch_engines.json``
+   (recorded by ``tests/goldens/record_torch_engines.py``) and
+   ``torch_fullsize.json``: dense-16k (16 384² adjacency) through
+   ``--kind tip --engine dense``, then ``ops.vertex_butterflies``,
+   ``ops.vertex_butterflies_tiled`` and ``ops.edge_wedge_matrix`` on its
+   adjacency (``vertex_count``, ``vertex_count_tile``, ``matmul``), each
+   held ``torch.equal`` to its plain version (for the whole-graph counts,
+   the route ``core.counting`` itself takes) and to the JAX counts;
+   wing-60k through ``--kind wing`` (beindex, the default) and
+   ``--engine dense``; its BE-Index through ``ops.bloom_update`` round by
+   round over seeded peel sets, held to the plain version and to the
+   engine's own update every round.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -58,6 +73,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate at the full 700 W
 
+FP32_FLOP_PER_S = 67e12      # H100 SXM FP32 CUDA-core peak (dense)
+INT8_OP_PER_S = 1979e12      # H100 SXM int8 tensor-core peak (dense)
+
 KERNEL_INFO = {
     "fd_round_wing": ("src/repro_torch/kernels/csrc/fd_round.cu",
                       "src/repro/kernels/fd_round.py:111"),
@@ -69,6 +87,14 @@ KERNEL_INFO = {
                     "src/repro/kernels/wedge_count.py:89"),
     "wedge_count_tile": ("src/repro_torch/kernels/csrc/wedge_count.cu",
                          "src/repro/kernels/wedge_count.py:59"),
+    "bloom_update": ("src/repro_torch/kernels/csrc/bloom_update.cu",
+                     "src/repro/kernels/bloom_update.py:47"),
+    "vertex_count": ("src/repro_torch/kernels/csrc/butterfly_count.cu",
+                     "src/repro/kernels/butterfly_count.py:54"),
+    "vertex_count_tile": ("src/repro_torch/kernels/csrc/butterfly_count.cu",
+                          "src/repro/kernels/butterfly_count.py:98"),
+    "matmul": ("src/repro_torch/kernels/csrc/butterfly_count.cu",
+               "src/repro/kernels/butterfly_count.py:149"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
@@ -401,11 +427,11 @@ def phase_goldens(dev):
 
     def run(key, use_pallas=False, fused=None):
         parts = key.split(".")
-        g, fd = graphs[parts[1]], parts[-1]
+        g, engine, fd = graphs[parts[1]], parts[-2], parts[-1]
         P = int(parts[2][1:])
         if fused is None:
-            fused = fd != "host"
-        kw = dict(P=P, engine="csr", fd_driver=fd, fused=fused,
+            fused = engine == "csr" and fd != "host"
+        kw = dict(P=P, engine=engine, fd_driver=fd, fused=fused,
                   use_pallas=use_pallas, device=dev)
         if parts[0] == "wing":
             res = wing_decomposition(g, **kw)
@@ -418,10 +444,13 @@ def phase_goldens(dev):
                                  f"{use_pallas}, fused={fused}): {bad}")
 
     cells = sorted(k for k in goldens if "csr" in k.split("."))
-    if len(cells) != 72:
-        raise AssertionError(f"expected 72 csr golden cells, found "
-                             f"{len(cells)}")
-    for key in cells:
+    others = sorted(k for k in goldens if "csr" not in k.split("."))
+    n_be = sum("beindex" in k.split(".") for k in others)
+    if (len(cells), n_be, len(others) - n_be) != (72, 8, 24):
+        raise AssertionError(f"expected 72 csr, 8 beindex and 24 dense "
+                             f"golden cells, found {len(cells)}, {n_be} "
+                             f"and {len(others) - n_be}")
+    for key in cells + others:
         run(key)
     # kernel-route reruns: CD through support_update / wedge_count, and the
     # unfused vmapped wing FD with support_update inside the loop
@@ -429,29 +458,24 @@ def phase_goldens(dev):
     for key in extra:
         run(key, use_pallas=True, fused=False)
     log(f"[smoke]   {len(cells)} csr golden cells equal field for field "
-        f"(fused on for device/vmapped); {len(extra)} pl80 cells again "
-        f"with use_pallas")
+        f"(fused on for device/vmapped), and {len(others)} beindex and "
+        f"dense cells; {len(extra)} pl80 cells again with use_pallas")
 
 
 # ---------------------------------------------------------------------
 # phases 4-5: the main path at full size
 # ---------------------------------------------------------------------
-def main_path(fullsize, name, g, flags, launches, dev):
-    """One CLI run on ``g``; held to the recorded JAX values.  Launch
-    counts are zeroed just before and read just after."""
-    import torch
-
+def cli_peel(g, argv, dev):
+    """One CLI run on ``g``.  Launch counts are zeroed just before and
+    read just after.  Returns (digests, launch counts, seconds, output)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import peel as cli
 
-    want = fullsize[name]
-    args = cli.build_parser().parse_args(
-        ["--kind", want["kind"], "--parts", str(want["P"]),
-         "--device", dev, *flags])
+    args = cli.build_parser().parse_args([*argv, "--device", dev])
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = cli.run(args, g=g)
-    torch.cuda.synchronize()
+    sync(dev)
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
     res = out["result"]
@@ -460,15 +484,284 @@ def main_path(fullsize, name, g, flags, launches, dev):
                support_init_sha256=cli.sha256_int64(res.support_init),
                ranges=[int(x) for x in res.ranges],
                stats={f: int(out[f]) for f in STAT_FIELDS})
-    for key, val in got.items():
-        if val != want[key]:
-            raise AssertionError(f"{name} {flags}: {key} {val} != JAX "
-                                 f"{want[key]}")
+    return got, counts, dt, out
+
+
+def hold(label, got, want, stats=STAT_FIELDS) -> None:
+    """θ, partition, ⋈init and ranges equal to the recorded JAX run, and
+    the ``stats`` fields of its PeelStats."""
+    for key in ("theta_sha256", "part_sha256", "support_init_sha256",
+                "ranges"):
+        expect(label, key, got[key], want[key])
+    expect(label, "stats", {f: got["stats"][f] for f in stats},
+           {f: want["stats"][f] for f in stats})
+
+
+def main_path(fullsize, name, g, flags, launches, dev):
+    """One CLI run on ``g``; held to the recorded JAX values."""
+    want = fullsize[name]
+    got, counts, dt, _ = cli_peel(
+        g, ["--kind", want["kind"], "--parts", str(want["P"]), *flags], dev)
+    hold(f"{name} {flags}", got, want)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     log(f"[smoke]   {name} {' '.join(flags) or '(defaults)'}: matches the "
         f"JAX package in {dt:.1f} s; launches {counts}")
     return counts, dt
+
+
+# ---------------------------------------------------------------------
+# phase 8: the dense and beindex engines and the butterfly kernels
+# ---------------------------------------------------------------------
+# PeelStats fields that do not depend on the engine (the csr recording
+# holds them for the dense and beindex runs; updates/recounts do depend)
+ENGINE_FREE_STATS = ("rho_cd", "rho_fd_total", "rho_fd_max", "p_effective")
+
+
+def check_compute_kernel(name, kernel, plain, inputs, ops_count, nbytes,
+                         peak, reps, library=None, fp32_bound=False):
+    """One call of a compute-bound kernel against its plain version, then
+    kernel, plain version and ``library`` timed over ``reps`` calls.  The
+    bound is the larger of ``ops_count`` at ``peak`` and ``nbytes`` at
+    the memory rate; with ``fp32_bound`` the row also carries the bound at
+    the FP32 CUDA-core peak this kernel's design runs at."""
+    got = kernel(*inputs)
+    want = plain(*inputs)
+    require_equal(name, got, want, "at the main path's shapes")
+    del got, want
+    ms = cuda_ms(lambda: kernel(*inputs), reps)
+    plain_ms = cuda_ms(lambda: plain(*inputs), reps)
+    library_ms = (None if library is None
+                  else cuda_ms(lambda: library(*inputs), reps))
+    bound_ms = max(ops_count / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by="operations",
+               ops_per_call=ops_count, bytes_per_call=nbytes,
+               calls_checked=1, max_abs_err=0.0)
+    if fp32_bound:
+        row["bound_fp32_ms"] = ops_count / FP32_FLOP_PER_S * 1e3
+    log(f"[smoke]   {name}: equal to the plain version on "
+        f"{[tuple(t.shape) for t in inputs]}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, library {library_ms} ms; "
+        f"{ops_count / 1e12:.3f} T ops -> bound {bound_ms:.3f} ms"
+        + (f" (FP32 {row['bound_fp32_ms']:.1f} ms)" if fp32_bound else ""))
+    return row
+
+
+def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
+    """A CLI run of the dense or beindex engine; θ, partition, ⋈init,
+    ranges and the engine-independent stats held to ``wants[0]``, every
+    stat to ``wants[1]`` (the JAX run of the same engine) where given."""
+    got, counts, dt, out = cli_peel(g, argv, dev)
+    expect(label, "engine", out["engine"], engine)
+    hold(label, got, wants[0], stats=ENGINE_FREE_STATS)
+    if wants[1] is not None:
+        hold(label, got, wants[1])
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    seconds[label] = {k: round(v, 3) for k, v in out["seconds"].items()}
+    log(f"[smoke]   {label}: θ, partition, ⋈init, ranges and stats match "
+        f"the JAX package in {dt:.1f} s ({seconds[label]}); stats "
+        f"{got['stats']}")
+
+
+def phase_engines(engines, fullsize, dev, launches):
+    """Phase 8; returns (kernel rows, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import counting
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.butterfly_count import (matmul, vertex_count,
+                                                     vertex_count_tile)
+    from repro_torch.launch.peel import sha256_int64
+
+    rows, seconds = {}, {}
+    i64 = torch.int64
+
+    # ---- dense-16k: the dense tip engine through the CLI
+    want = engines["dense-16k"]
+    g = powerlaw_bipartite(**want["graph"])
+    expect("dense-16k", "edges sha256", sha256_int64(g.edges),
+           want["edges_sha256"])
+    engines_cli("dense-16k --kind tip --engine dense", g,
+                ["--kind", "tip", "--side", want["side"], "--engine",
+                 "dense", "--parts", str(want["P"])], "dense",
+                (want["csr"], want.get("dense")), dev, launches, seconds)
+
+    # the kernels' main path: the public ops entry points on its adjacency
+    A = torch.from_numpy(g.adjacency()).to(dev)
+    edges = torch.from_numpy(g.edges).to(dev, i64)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    vb = ops.vertex_butterflies(A)
+    vt = ops.vertex_butterflies_tiled(A, tile_rows=1024)
+    M = ops.edge_wedge_matrix(A)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n, k = A.shape
+    on_card = torch.device(dev).type == "cuda"
+    expect("dense-16k ops", "launches",
+           {key: counts[key] for key in ("vertex_count", "vertex_count_tile",
+                                         "matmul")},
+           dict(vertex_count=int(on_card),
+                vertex_count_tile=-(-n // 1024) * on_card,
+                matmul=2 * on_card))
+    for key, v in counts.items():
+        launches[key] = launches.get(key, 0) + v
+    seconds["dense-16k ops (vertex_butterflies, _tiled, edge_wedge_matrix)"] \
+        = round(dt, 3)
+    exact_v = torch.round(vb.double()).to(i64)
+    require_equal("vertex_count_tile", (vt,), (exact_v,),
+                  "as ops.vertex_butterflies_tiled vs ops.vertex_butterflies")
+    expect("dense-16k", "vertex butterflies sha256",
+           sha256_int64(vt.cpu().numpy()), want["vertex_butterflies_sha256"])
+    du = A.sum(dim=1)
+    u, v = edges[:, 0], edges[:, 1]
+    per_edge = M[u, v] - (du[u] - 1.0)
+    del M
+    require_equal("matmul", (per_edge,), (counting.edge_butterflies(A, edges),),
+                  "as ops.edge_wedge_matrix vs core.counting")
+    expect("dense-16k", "edge butterflies sha256",
+           sha256_int64(np.rint(per_edge.cpu().numpy())),
+           want["edge_butterflies_sha256"])
+    log(f"[smoke]   dense-16k ops: vertex_butterflies equals _tiled (16 "
+        f"strips) and edge_wedge_matrix core.counting; both counts equal the "
+        f"JAX ones; {dt:.2f} s, launches {counts}")
+    del vb, vt, exact_v, per_edge
+    torch.cuda.empty_cache()
+
+    # each kernel against its plain version at these shapes, timed.  The
+    # plain vertex count is core.counting's dense route (no single
+    # library call); W = A·Aᵀ is symmetric, so its function needs only
+    # the n(n−1)/2 off-diagonal pairs: n(n−1)k operations, not 2n²k.
+    rows["vertex_count"] = check_compute_kernel(
+        "vertex_count", lambda a: (vertex_count(a),),
+        lambda a: (ref.vertex_butterflies_ref(a),), (A,),
+        float(n * (n - 1) * k), 4 * n * k + 4 * n, INT8_OP_PER_S, 3,
+        fp32_bound=True)
+    rows["vertex_count"]["library"] = \
+        "none (no single call; the plain version is core.counting's route)"
+    strip = A[:1024]
+    rows["vertex_count_tile"] = check_compute_kernel(
+        "vertex_count_tile", lambda s, a: (vertex_count_tile(s, a),),
+        lambda s, a: (ref.vertex_count_tile_ref(s, a),), (strip, A),
+        2.0 * 1024 * n * k, 4 * (1024 + n) * k + 4 * 1024, INT8_OP_PER_S, 5,
+        fp32_bound=True)
+    row = check_compute_kernel(
+        "matmul", lambda a, b: (matmul(a, b, trans_b=True),),
+        lambda a, b: (ref.matmul_ref(a, b, True),), (A, A),
+        2.0 * n * n * k, 4 * (2 * n * k + n * n), FP32_FLOP_PER_S, 3,
+        library=lambda a, b: (torch.matmul(a, b.T),))
+    W = matmul(A, A, trans_b=True)
+    row2 = check_compute_kernel(
+        "matmul", lambda w, a: (matmul(w, a),),
+        lambda w, a: (ref.matmul_ref(w, a),), (W, A), 2.0 * n * n * k,
+        4 * (n * n + 2 * n * k), FP32_FLOP_PER_S, 3,
+        library=lambda w, a: (torch.matmul(w, a),))
+    row.update(ms=(row["ms"] + row2["ms"]) / 2,
+               plain_ms=(row["plain_ms"] + row2["plain_ms"]) / 2,
+               library_ms=(row["library_ms"] + row2["library_ms"]) / 2,
+               calls_checked=2, library="torch.matmul, TF32 off")
+    rows["matmul"] = row
+    del A, W, strip, edges
+    torch.cuda.empty_cache()
+
+    # ---- wing-60k: the beindex (default) and dense wing engines
+    wf, we = fullsize["wing-60k"], engines["wing-60k"]
+    g = powerlaw_bipartite(**wf["graph"])
+    for argv, engine in ((["--kind", "wing"], "beindex"),
+                         (["--kind", "wing", "--engine", "dense"], "dense")):
+        engines_cli(f"wing-60k {' '.join(argv)}", g,
+                    [*argv, "--parts", str(wf["P"])], engine,
+                    (wf, we.get(engine)), dev, launches, seconds)
+    rows["bloom_update"] = check_bloom_rounds(we, g, dev, launches, seconds)
+    return rows, seconds
+
+
+def check_bloom_rounds(we, g, dev, launches, seconds):
+    """The BE-Index of wing-60k (held to the JAX index), then
+    ``ops.bloom_update`` round by round over seeded peel sets at the
+    fractions 0, 1/6, 1/2 and 1 of the edges, carrying the alive pairs
+    and bloom numbers; every round ``sup − loss`` and the bloom numbers
+    equal the engine's own update (``core.peel._wing_update``), and the
+    kernel equals its plain version on each round's inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import peel
+    from repro_torch.core.beindex import build_beindex
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bloom_update import bloom_update
+
+    t0 = time.perf_counter()
+    be = build_beindex(g)
+    seconds["wing-60k build_beindex"] = round(time.perf_counter() - t0, 3)
+    got = dict(nb=be.nb, n_links=be.n_links, max_pairs=int(be.bloom_k.max()))
+    got.update({f"{k}_sha256": sha_bytes(getattr(be, k))
+                for k in ("bloom_k", "link_edge", "link_twin", "link_bloom")})
+    expect("wing-60k", "BE-Index", got, we["index"])
+    m, nb = g.m, be.nb
+    p = ops.pack_blooms(be.link_edge, be.link_twin, be.link_bloom, nb)
+    le, lt, valid, canon = (torch.from_numpy(p[key]).to(dev)
+                            for key in ("le", "lt", "valid", "canon"))
+    nb_pad, K = le.shape
+    k_alive = torch.zeros(nb_pad, dtype=torch.float32, device=dev)
+    k_alive[:nb] = torch.from_numpy(be.bloom_k).to(dev, torch.float32)
+    alive_pair = valid
+    links = [torch.from_numpy(x).to(dev) for x in
+             (be.link_edge, be.link_twin, be.link_bloom)]
+    eng = (torch.ones(be.n_links, dtype=torch.bool, device=dev),
+           torch.from_numpy(be.bloom_k).to(dev),
+           torch.from_numpy(be.edge_support(m).astype(np.int32)).to(dev))
+    sup = eng[2].clone()
+    perm = np.random.default_rng(0).permutation(m)
+    cuts = [0, 0, m // 6, m // 2, m]   # fractions 0, 1/6, 1/2, 1
+    saved = []
+    ops.reset_launch_counts()
+    for r in range(4):
+        peeled = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+        peeled[torch.from_numpy(perm[cuts[r]:cuts[r + 1]]).to(dev)] = True
+        saved.append((peeled, alive_pair, k_alive))
+        loss, c, alive_pair = ops.bloom_update(peeled, alive_pair, k_alive,
+                                               le, lt, canon)
+        k_alive = k_alive - c
+        sup = sup - loss.to(torch.int32)
+        alive_l, k_l, sup_l, _ = peel._wing_update(
+            peeled[:m], *eng, *links, max(nb, 1), m)
+        eng = (alive_l, k_l, sup_l)
+        require_equal("bloom_update", (sup, k_alive[:nb].to(torch.int32)),
+                      (sup_l, k_l), f"(sup − loss, k) vs the engine update "
+                      f"at round {r}")
+    sync(dev)
+    counts = ops.launch_counts()
+    expect("wing-60k bloom rounds", "bloom_update launches",
+           counts["bloom_update"], 4 * (torch.device(dev).type == "cuda"))
+    for key, v in counts.items():
+        launches[key] = launches.get(key, 0) + v
+    sent = m
+    lei = torch.where(le < 0, sent, le)
+    lti = torch.where(lt < 0, sent, lt)
+
+    def flags(peeled, alive, kk):
+        return (ops._u8(peeled[lei]), ops._u8(peeled[lti]), ops._u8(alive),
+                ops._u8(canon), kk)
+
+    for r, state in enumerate(saved):
+        inputs = flags(*state)
+        require_equal("bloom_update", bloom_update(*inputs),
+                      ref.bloom_update_ref(*inputs), f"at round {r}")
+    nbytes = 8 * nb_pad * K + 8 * nb_pad
+    row = check_rows_kernel("bloom_update", bloom_update,
+                            ref.bloom_update_ref, flags(*saved[2]), nbytes,
+                            reps=50)
+    row.update(calls_checked=4, bound_by="bytes")
+    log(f"[smoke]   wing-60k BE-Index: {nb} blooms, {be.n_links} links, "
+        f"K={K}, {nb_pad} rows; 4 bloom_update rounds equal the engine "
+        f"update and the plain version")
+    return row
 
 
 # ---------------------------------------------------------------------
@@ -732,15 +1025,18 @@ def main() -> int:
     with open(os.path.join(ROOT, "tests", "goldens",
                            "torch_realdata.json")) as f:
         realdata = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_engines.json")) as f:
+        engines = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        return run_phases(fullsize, realdata, dev, smi, tmp)
+        return run_phases(fullsize, realdata, engines, dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(fullsize, realdata, dev, smi, tmp) -> int:
+def run_phases(fullsize, realdata, engines, dev, smi, tmp) -> int:
     import torch
 
     with Phase("1-setup"):
@@ -803,6 +1099,11 @@ def run_phases(fullsize, realdata, dev, smi, tmp) -> int:
     with Phase("7-real-graphs"):
         real_seconds = phase_real_graphs(realdata, dev, tmp, launches)
 
+    with Phase("8-engines"):
+        engine_rows, engine_seconds = phase_engines(engines, fullsize, dev,
+                                                    launches)
+        rows.update(engine_rows)
+
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -813,10 +1114,14 @@ def run_phases(fullsize, realdata, dev, smi, tmp) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=int(launches[name]), max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="bytes", library_ms=r.get("library_ms"),
-            bytes_per_call=r["bytes_per_call"]))
+            bound_by=r.get("bound_by", "bytes"),
+            library_ms=r.get("library_ms"),
+            **{key: r[key] for key in ("bytes_per_call", "ops_per_call",
+                                       "bound_fp32_ms", "library")
+               if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, fd_driver_seconds=fd_times,
-                        real_graph_seconds=real_seconds)))
+                        real_graph_seconds=real_seconds,
+                        engine_seconds=engine_seconds)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """PyTorch port of PBNG (parallel peeling of bipartite networks) for
 NVIDIA Hopper.
 
-A second package beside the JAX reference ``repro``: the csr engine's
-tip and wing decomposition and its FD drivers, the real-graph path
-(out-of-core ingest, tiled ⋈init), the hierarchy of dense subgraphs and
-its query service, and five hand-written CUDA kernels
-(``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy, never
+A second package beside the JAX reference ``repro``: tip and wing
+decomposition on the csr, beindex and dense engines with the csr FD
+drivers, the real-graph path (out-of-core ingest, tiled ⋈init), the
+hierarchy of dense subgraphs and its query service, and nine
+hand-written CUDA kernels (``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy, never
 ``jax`` and nothing of ``repro``.  See ``repro_torch/README.md``.
 """
 from .core.graph import (
@@ -16,8 +16,10 @@ from .core.graph import (
     powerlaw_bipartite,
     random_bipartite,
 )
+from .core.beindex import BEIndex, build_beindex
 from .core.csr import TileStats, iter_wedge_tiles, tiled_butterfly_init
-from .core.peel import tip_decomposition, wing_decomposition
+from .core.peel import (tip_decomposition, wing_decomposition,
+                        wing_decomposition_bepc)
 from .core.peelspec import PeelResult, PeelStats
 from .data import IngestedGraph, ingest_edges, load_ingested
 from .hierarchy import (
@@ -31,6 +33,7 @@ from .hierarchy import (
 )
 
 __all__ = [
+    "BEIndex",
     "BipartiteGraph",
     "HQuery",
     "Hierarchy",
@@ -40,6 +43,7 @@ __all__ = [
     "PeelResult",
     "PeelStats",
     "TileStats",
+    "build_beindex",
     "build_hierarchy",
     "from_tsv",
     "ingest_edges",
@@ -54,4 +58,5 @@ __all__ = [
     "tiled_butterfly_init",
     "tip_decomposition",
     "wing_decomposition",
+    "wing_decomposition_bepc",
 ]

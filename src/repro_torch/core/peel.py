@@ -1,24 +1,35 @@
-"""PBNG two-phased peeling (§3) — tip and wing decomposition on the csr
-engine, in PyTorch.
+"""PBNG two-phased peeling (§3) — tip and wing decomposition in PyTorch.
 
 Phase 1 (CD) peels every entity whose support lies in the current range
 with one fully parallel masked update per round; Phase 2 (FD) peels each
-partition to exact entity numbers with no communication, in LPT order
-(``device``), all partitions at once (``vmapped``) or round by round
-from the host (``host``).  Both phases run the entity-agnostic core in
-``core.peelspec``; this module only builds the :class:`PeelSpec` of each
-entity universe.
+partition to exact entity numbers with no communication.  Both phases
+run the entity-agnostic core in ``core.peelspec``; this module only
+builds the :class:`PeelSpec` of each entity universe.
 
-The csr engine peels on the sparse wedge list (``core.csr``) with purely
-incremental int32 updates, so θ, round counts and update counts are
-bit-identical to the JAX package's csr engine for every driver.  Three
-switches select the kernels: ``fused`` runs each FD round of the
-device/vmapped drivers as one ``fd_round_wing``/``fd_round_tip`` call;
-``use_pallas`` (the JAX package's name, kept for parity) runs CD updates
-through ``support_update``/``wedge_count`` and, for the unfused vmapped
-wing FD, ``support_update`` inside the loop.  Entry points run on the
-card (``device="cuda"``) unless the caller passes ``device="cpu"``, where
-every kernel is replaced by its plain version.
+Three engines, as in the JAX package, all giving the same θ:
+
+* ``engine="dense"`` — supports re-counted with masked matrix products
+  (``core.counting``, the paper's §5.1 batch re-count), or for tip
+  updated incrementally from the static pair-butterfly matrix.  O(n²)
+  memory, guarded by ``REPRO_DENSE_MAX_ELEMS``.  The default for tip.
+* ``engine="beindex"`` — paper-faithful BE-Index twin/bloom bookkeeping
+  (alg.4/alg.6), int32 ``index_add_`` in place of the paper's atomics.
+  The default for wing.
+* ``engine="csr"`` — the sparse wedge list (``core.csr``) with purely
+  incremental int32 updates, bit-identical to the JAX package's csr
+  engine for every FD driver (``device`` in LPT order, ``vmapped`` all
+  partitions at once, ``host`` round by round).  Three switches select
+  its kernels: ``fused`` runs each FD round of the device/vmapped
+  drivers as one ``fd_round_wing``/``fd_round_tip`` call; ``use_pallas``
+  (the JAX package's name, kept for parity) runs CD updates through
+  ``support_update``/``wedge_count`` and, for the unfused vmapped wing
+  FD, ``support_update`` inside the loop.
+
+The dense and beindex engines peel their FD partitions from the host
+(one device update and one support copy per round), as the JAX
+package's do.  Entry points run on the card (``device="cuda"``) unless
+the caller passes ``device="cpu"``, where every kernel is replaced by
+its plain version.
 """
 from __future__ import annotations
 
@@ -27,7 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import csr
+from . import counting, csr
+from .beindex import BEIndex, build_beindex
 from .distributed import pack_fd_partitions_csr, pack_fd_partitions_tip_csr
 from .graph import BipartiteGraph
 from .peelspec import (
@@ -43,22 +55,19 @@ from .peelspec import (
     decompose,
 )
 from ..kernels import ops as kops
+from ..kernels.ref import matmul_f32
 
 __all__ = [
     "PeelStats",
     "PeelResult",
     "PeelSpec",
     "build_peel_spec",
+    "bup_levels",
     "resolve_device",
     "tip_decomposition",
     "wing_decomposition",
+    "wing_decomposition_bepc",
 ]
-
-# engines of the JAX package that this package does not have yet
-_NOT_PORTED = {
-    "beindex": "ROADMAP queue 1, item 8",
-    "dense": "ROADMAP queue 1, item 9",
-}
 
 _I32 = torch.int32
 
@@ -82,12 +91,19 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy().astype(np.int64)
 
 
+def _host_rint(x: torch.Tensor) -> np.ndarray:
+    """Host int64 copy of a float tensor of exact integer counts."""
+    return np.rint(x.cpu().numpy()).astype(np.int64)
+
+
 def build_peel_spec(
     g: BipartiteGraph,
     kind: str,
     stats: PeelStats,
     side: str = "u",
     engine: str = "csr",
+    batch_recount="adaptive",
+    be: Optional[BEIndex] = None,
     fd_driver: str = "device",
     use_pallas: bool = False,
     fused: bool = False,
@@ -97,10 +113,13 @@ def build_peel_spec(
 ) -> PeelSpec:
     """Build the :class:`PeelSpec` of a ``(kind, engine)`` universe.
 
-    Validates the engine/driver matrix as the JAX package does; the
-    engines other than csr raise ``NotImplementedError`` naming their
-    ROADMAP item.  ``sup0`` injects a precomputed ⋈init vector and
-    ``wed`` prebuilt wedge structures; injection never changes results."""
+    Validates the engine/driver matrix as the JAX package does.  ``sup0``
+    injects a precomputed ⋈init vector (int64, one entry per entity of
+    ``kind``) — honored by both csr specs and the wing dense spec; the
+    tip dense spec recounts regardless and the beindex spec counts from
+    its index.  ``wed`` injects prebuilt wedge structures for the csr
+    specs, ``be`` a prebuilt BE-Index for the beindex spec.  Injection
+    never changes results."""
     if kind not in ("tip", "wing"):
         raise ValueError(kind)
     if kind == "tip":
@@ -116,15 +135,18 @@ def build_peel_spec(
         raise ValueError("fused applies to engine='csr' only")
     if fused and fd_driver == "host":
         raise ValueError("fused requires fd_driver='device' or 'vmapped'")
-    if engine != "csr":
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported to repro_torch yet "
-            f"({_NOT_PORTED[engine]}); use engine='csr'")
     device = resolve_device(device)
     if kind == "tip":
         gg = g if side == "u" else g.transpose()
-        return _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device)
-    return _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device)
+        if engine == "csr":
+            return _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed,
+                                 device)
+        return _tip_spec_dense(gg, batch_recount, stats, device)
+    if engine == "beindex":
+        return _wing_spec_beindex(g, be, stats, device)
+    if engine == "csr":
+        return _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device)
+    return _wing_spec_dense(g, stats, sup0, device)
 
 
 # =====================================================================
@@ -134,7 +156,8 @@ def tip_decomposition(
     g: BipartiteGraph,
     side: str = "u",
     P: int = 16,
-    engine: str = "csr",
+    batch_recount="adaptive",
+    engine: str = "dense",
     fd_driver: str = "device",
     use_pallas: bool = False,
     fused: bool = False,
@@ -143,17 +166,150 @@ def tip_decomposition(
 ) -> PeelResult:
     """PBNG tip decomposition (§3.2) — θ per U (or V) vertex.
 
-    ``fd_driver``: ``"device"`` peels partitions one at a time in LPT
-    order, ``"vmapped"`` all at once in one batched loop, ``"host"``
-    round by round from a Python loop.  ``fused`` (device/vmapped) runs
-    each FD round as one ``fd_round_tip`` call; ``use_pallas`` runs the
-    CD deltas through the ``wedge_count`` kernel.  Every combination
-    gives the same θ and counts."""
-    stats = PeelStats(engine=engine, fd_driver=fd_driver, side=side)
+    ``engine="dense"`` (default) re-counts with masked matrix products;
+    ``engine="csr"`` peels on the sparse wedge list with purely
+    incremental pair updates — O(Σ deg²) memory, the only option once
+    the n×n wedge matrix stops fitting.
+
+    ``fd_driver`` (csr only): ``"device"`` peels partitions one at a time
+    in LPT order, ``"vmapped"`` all at once in one batched loop,
+    ``"host"`` round by round from a Python loop.  ``fused`` (csr,
+    device/vmapped) runs each FD round as one ``fd_round_tip`` call;
+    ``use_pallas`` (csr) runs the CD deltas through the ``wedge_count``
+    kernel.
+
+    ``batch_recount`` (dense only), the §5.1 batch knob: ``"adaptive"``
+    (default) re-counts all survivors in a CD round iff the frontier's
+    wedge workload exceeds the counting bound Σ_e min(d_u, d_v), and
+    otherwise applies incremental pairwise updates; ``True`` always
+    re-counts, ``False`` never does.  Every combination gives the same
+    θ."""
+    stats = PeelStats(engine=engine,
+                      fd_driver=fd_driver if engine == "csr" else "host",
+                      side=side)
     spec = build_peel_spec(
-        g, "tip", stats, side=side, engine=engine, fd_driver=fd_driver,
+        g, "tip", stats, side=side, engine=engine,
+        batch_recount=batch_recount, fd_driver=fd_driver,
         use_pallas=use_pallas, fused=fused, sup0=sup0, device=device)
     return decompose(spec, P, stats, fd_driver=fd_driver)
+
+
+def _dense_guard(n_u: int, n_v: int) -> None:
+    """Refuse dense-engine allocations that cannot fit.
+
+    The dense engine materializes an n_u×n_v adjacency and an n_u×n_u
+    wedge matrix; past ``REPRO_DENSE_MAX_ELEMS`` elements (default 2²⁸,
+    1 GiB of f32) it fails fast with a pointer at the csr engine."""
+    limit = counting._dense_limit()
+    need = max(n_u * n_v, n_u * n_u)
+    if need > limit:
+        raise MemoryError(
+            f"dense engine needs a {n_u}x{max(n_v, n_u)} matrix "
+            f"({need} > REPRO_DENSE_MAX_ELEMS={limit}); "
+            "use engine='csr' for graphs this large"
+        )
+
+
+def _tip_recount(A: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    return counting.vertex_butterflies(A * alive[:, None].to(A.dtype))
+
+
+def _tip_fd_delta(pair_bf: torch.Tensor, peel: torch.Tensor) -> torch.Tensor:
+    """Δ⋈_u' = Σ_{u peeled} (butterflies shared by pair (u', u))."""
+    return matmul_f32(pair_bf, peel.to(pair_bf.dtype))
+
+
+def _pair_butterflies(A: torch.Tensor) -> torch.Tensor:
+    """The static pair-butterfly matrix C(W, 2) with a zero diagonal,
+    formed on the host as the JAX package forms it (W copied out,
+    ``fill_diagonal``, C(W, 2) in f32) and sent back to A's device."""
+    W = counting.wedge_counts(A).cpu().numpy()
+    np.fill_diagonal(W, 0)
+    return _t(W * (W - 1) / 2, A.device)
+
+
+def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
+                    device) -> PeelSpec:
+    """Dense-engine tip spec: masked-product batch re-counts (or §5.1
+    adaptive incremental pairwise updates) as the CD step, the static
+    pairwise-butterfly cascade as the FD rule."""
+    n = gg.n_u
+    _dense_guard(gg.n_u, gg.n_v)
+    A = _t(gg.adjacency(), device)
+    # the paper's proxy, kept f32 as the JAX package keeps it: range
+    # selection sums these weights in f32
+    wedge_w = counting.vertex_wedge_workload(A).cpu().numpy()
+
+    support = counting.vertex_butterflies(A)
+    counting.assert_exact(support)
+    sup0 = _host_rint(support)
+
+    # counting-work bound ∧cnt (alg.1 complexity) for the adaptive rule
+    du, dv = gg.degrees()
+    cnt_bound = float(
+        np.minimum(du[gg.edges[:, 0]], dv[gg.edges[:, 1]]).sum())
+
+    # static pairwise butterfly matrix for the incremental path
+    pair_bf_full = _pair_butterflies(A) if batch_recount is not True else None
+
+    state = dict(alive=torch.ones((n,), dtype=torch.bool, device=device),
+                 support=support)
+
+    def cd_step(active: np.ndarray) -> np.ndarray:
+        state["alive"] = state["alive"] & _t(~active, device)
+        if batch_recount is True:
+            use_recount = True
+        elif batch_recount is False:
+            use_recount = False
+        else:  # adaptive §5.1: peel-work vs recount-work
+            use_recount = float(wedge_w[active].sum()) > cnt_bound
+        if use_recount:
+            state["support"] = _tip_recount(A, state["alive"])
+            stats.recounts += 1
+        else:
+            state["support"] = state["support"] - _tip_fd_delta(
+                pair_bf_full, _t(active, device))
+            stats.updates += int(active.sum()) * int(state["alive"].sum())
+        return _host_rint(state["support"])
+
+    def fd_partition(i, part, sup_init, theta, fd_driver):
+        rows = np.where(part == i)[0]
+        if rows.size == 0:
+            return 0, 0, 0
+        return _tip_fd_peel(A, rows, sup_init[rows], theta), 0, 0
+
+    return PeelSpec(
+        kind="tip", n=n, sup0=sup0,
+        workload=lambda s: wedge_w,
+        est=lambda s: wedge_w,
+        cd_step=cd_step,
+        fd_partition=fd_partition,
+    )
+
+
+def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
+                 theta: np.ndarray) -> int:
+    """Sequential (level-synchronous) bottom-up peel of one partition.
+
+    Exact because a butterfly has exactly two U-endpoints and V is never
+    peeled: pairwise counts within the partition are static."""
+    dev = A.device
+    pair_bf = _pair_butterflies(A[_t(rows, dev)])
+    alive = np.ones(rows.size, dtype=bool)
+    support = sup0.astype(np.float64).copy()
+    k = 0
+    rounds = 0
+    while alive.any():
+        k = max(k, int(support[alive].min()))
+        while True:
+            S = alive & (support <= k)
+            if not S.any():
+                break
+            theta[rows[S]] = k
+            alive &= ~S
+            support -= _tip_fd_delta(pair_bf, _t(S, dev)).cpu().numpy()
+            rounds += 1
+    return rounds
 
 
 def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
@@ -340,7 +496,8 @@ def _tip_fd_vmapped_csr(wed, pair_bf0, part, sup_init, theta, n_parts,
 def wing_decomposition(
     g: BipartiteGraph,
     P: int = 16,
-    engine: str = "csr",
+    engine: str = "beindex",
+    be: Optional[BEIndex] = None,
     fd_driver: str = "device",
     use_pallas: bool = False,
     fused: bool = False,
@@ -349,16 +506,196 @@ def wing_decomposition(
 ) -> PeelResult:
     """PBNG wing decomposition (§3.3) — θ per edge.
 
-    ``fd_driver`` as for :func:`tip_decomposition`.  ``fused``
-    (device/vmapped) runs each FD round as one ``fd_round_wing`` call;
-    ``use_pallas`` runs CD updates through the ``support_update`` kernel
-    and, with the unfused vmapped driver, FD updates too.  Every
-    combination gives the same θ and counts."""
-    stats = PeelStats(engine=engine, fd_driver=fd_driver)
+    ``engine`` ∈ {"beindex" (default), "dense", "csr"}: BE-Index
+    incremental updates (``be`` injects a prebuilt index), masked-product
+    re-counts, or sparse wedge-list incremental updates (the scalable
+    path).  ``fd_driver`` as for :func:`tip_decomposition` (csr only).
+    ``fused`` (csr, device/vmapped) runs each FD round as one
+    ``fd_round_wing`` call; ``use_pallas`` (csr) runs CD updates through
+    the ``support_update`` kernel and, with the unfused vmapped driver,
+    FD updates too.  Every combination gives the same θ."""
+    stats = PeelStats(engine=engine,
+                      fd_driver=fd_driver if engine == "csr" else "host")
     spec = build_peel_spec(
-        g, "wing", stats, engine=engine, fd_driver=fd_driver,
+        g, "wing", stats, engine=engine, be=be, fd_driver=fd_driver,
         use_pallas=use_pallas, fused=fused, sup0=sup0, device=device)
     return decompose(spec, P, stats, fd_driver=fd_driver)
+
+
+def _wing_recount(shape, edges: torch.Tensor,
+                  alive_e: torch.Tensor) -> torch.Tensor:
+    A = counting.masked_adjacency(shape, edges, alive_e)
+    return counting.edge_butterflies(A, edges)
+
+
+def _wing_links(be: BEIndex, device):
+    return (_t(be.link_edge, device), _t(be.link_twin, device),
+            _t(be.link_bloom, device))
+
+
+def _wing_update(peeled_e, alive_link, k_alive, support, le, lt, lb,
+                 nb: int, m: int):
+    """Batched BE-Index support update (alg.6 exact semantics).
+
+    Bloom bookkeeping: a twin *pair* dies when either member is peeled.
+    Dying-pair survivors (widows) lose every butterfly they had in the
+    bloom (k_alive − 1); edges of surviving pairs lose one butterfly per
+    dying pair (c_B).  int32 ``index_add_`` replaces the paper's
+    atomics.  Returns (alive_link, k_alive, support, update count)."""
+    pe = peeled_e[le]
+    pt = peeled_e[lt]
+    pair_dies = alive_link & (pe | pt)
+    canon = le < lt
+    c = csr._seg((pair_dies & canon).to(_I32), lb, nb)
+    widow = alive_link & ~pe & pt
+    surv = alive_link & ~pair_dies
+    c_l = c[lb]
+    contrib = (torch.where(widow, k_alive[lb] - 1, 0)
+               + torch.where(surv, c_l, 0))
+    loss = csr._seg(contrib, le, m)
+    n_updates = widow.sum() + (surv & (c_l > 0)).sum()
+    return alive_link & ~pair_dies, k_alive - c, support - loss, n_updates
+
+
+def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
+                       stats: PeelStats, device) -> PeelSpec:
+    """BE-Index wing spec: alg.4/6 widow/survivor updates as the CD
+    step, link-packed sub-indices (alg.5) as the FD rule."""
+    m = g.m
+    if be is None:
+        be = build_beindex(g)
+    le, lt, lb = _wing_links(be, device)
+    nb = max(be.nb, 1)
+    sup0 = be.edge_support(m)
+    state = dict(
+        alive_link=torch.ones((be.n_links,), dtype=torch.bool, device=device),
+        k_alive=_t(be.bloom_k.astype(np.int32), device),
+        support=_t(sup0.astype(np.int32), device),
+    )
+
+    def cd_step(active: np.ndarray) -> np.ndarray:
+        state["alive_link"], state["k_alive"], state["support"], nupd = (
+            _wing_update(_t(active, device), state["alive_link"],
+                         state["k_alive"], state["support"], le, lt, lb,
+                         nb, m))
+        stats.updates += int(nupd)
+        return _host(state["support"])
+
+    def fd_partition(i, part, sup_init, theta, fd_driver):
+        rounds, nupd = _wing_fd_beindex(g, be, part, i, sup_init, theta,
+                                        device)
+        return rounds, nupd, 0
+
+    workload, est = _wing_workload_est()
+    return PeelSpec(
+        kind="wing", n=m, sup0=sup0, workload=workload, est=est,
+        cd_step=cd_step, fd_partition=fd_partition,
+    )
+
+
+def _wing_fd_beindex(g: BipartiteGraph, be: BEIndex, part: np.ndarray,
+                     i: int, sup_init: np.ndarray, theta: np.ndarray,
+                     device) -> Tuple[int, int]:
+    """FD for partition i, BE-Index engine (alg.5 semantics).
+
+    Sub-index = links whose pair touches partition i with both members in
+    partitions ≥ i; bloom numbers initialised to the count of pairs with
+    both members ≥ i (alg.5 lines 21-24)."""
+    ple = part[be.link_edge]
+    plt_ = part[be.link_twin]
+    pair_ge = (ple >= i) & (plt_ >= i)
+    keep = pair_ge & (np.minimum(ple, plt_) == i)  # pairs that can die in FD_i
+    if not keep.any():
+        return 0, 0
+    canon_full = be.link_edge < be.link_twin
+    # bloom number in I_i: pairs with both members ≥ i
+    k_init = np.bincount(be.link_bloom[pair_ge & canon_full],
+                         minlength=be.nb)
+    le = _t(be.link_edge[keep], device)
+    lt = _t(be.link_twin[keep], device)
+    lb = _t(be.link_bloom[keep], device)
+    nb = max(be.nb, 1)
+    m = g.m
+    mine = part == i
+    support_full = np.zeros(m, dtype=np.int64)
+    support_full[mine] = sup_init[mine]
+    st = dict(alive_link=torch.ones((int(keep.sum()),), dtype=torch.bool,
+                                    device=device),
+              k_alive=_t(k_init.astype(np.int32), device),
+              support=_t(support_full.astype(np.int32), device), nupd=0)
+
+    def peel(S, sup):
+        st["alive_link"], st["k_alive"], st["support"], nu = _wing_update(
+            _t(S, device), st["alive_link"], st["k_alive"], st["support"],
+            le, lt, lb, nb, m)
+        st["nupd"] += int(nu)
+        return _host(st["support"])
+
+    rounds = _fd_cascade(mine, support_full.copy(), theta, peel)
+    return rounds, st["nupd"]
+
+
+def _wing_spec_dense(g: BipartiteGraph, stats: PeelStats,
+                     sup0: Optional[np.ndarray], device) -> PeelSpec:
+    """Dense wing spec: masked-product batch re-counts for both phases."""
+    m = g.m
+    _dense_guard(g.n_u, g.n_v)
+    edges = _t(g.edges.astype(np.int64), device)
+    shape = (g.n_u, g.n_v)
+    if sup0 is None:
+        support = _wing_recount(shape, edges,
+                                torch.ones((m,), dtype=torch.bool,
+                                           device=device))
+        counting.assert_exact(support)
+        sup0 = _host_rint(support)
+    else:
+        sup0 = np.asarray(sup0, dtype=np.int64)
+    state = dict(alive=np.ones(m, dtype=bool))
+
+    def cd_step(active: np.ndarray) -> np.ndarray:
+        state["alive"] &= ~active
+        sup = _wing_recount(shape, edges, _t(state["alive"], device))
+        stats.recounts += 1
+        return _host_rint(sup)
+
+    def fd_partition(i, part, sup_init, theta, fd_driver):
+        rounds, nrec = _wing_fd_dense(g, part, i, sup_init, theta, device)
+        return rounds, 0, nrec
+
+    workload, est = _wing_workload_est()
+    return PeelSpec(
+        kind="wing", n=m, sup0=sup0, workload=workload, est=est,
+        cd_step=cd_step, fd_partition=fd_partition,
+    )
+
+
+def _wing_fd_dense(g: BipartiteGraph, part: np.ndarray, i: int,
+                   sup_init: np.ndarray, theta: np.ndarray,
+                   device) -> Tuple[int, int]:
+    """FD for partition i, dense engine: peel E_i inside the ≥i subgraph,
+    re-counting supports on the masked adjacency each round."""
+    sel = np.where(part >= i)[0]
+    mine = part[sel] == i
+    if not mine.any():
+        return 0, 0
+    sub_edges = _t(g.edges[sel].astype(np.int64), device)
+    shape = (g.n_u, g.n_v)
+    alive = np.ones(sel.size, dtype=bool)
+    support = sup_init[sel].astype(np.int64).copy()
+    k = 0
+    rounds = 0
+    while (alive & mine).any():
+        k = max(k, int(support[alive & mine].min()))
+        while True:
+            S = alive & mine & (support <= k)
+            if not S.any():
+                break
+            theta[sel[S]] = k
+            alive &= ~S
+            support = _host_rint(
+                _wing_recount(shape, sub_edges, _t(alive, device)))
+            rounds += 1
+    return rounds, rounds
 
 
 def _wing_workload_est():
@@ -604,3 +941,82 @@ def _wing_fd_vmapped_csr(wed, part, sup_init, theta, n_parts, use_pallas,
     mm = packed["mine"]
     theta[packed["gids"][mm]] = _host(theta_st)[mm]
     return _host(rounds), int(nupd)
+
+
+# =====================================================================
+# Baseline: level-synchronous bottom-up peeling round count
+# =====================================================================
+def bup_levels(theta: np.ndarray) -> int:
+    """Number of peeling iterations a level-by-level parallel BUP
+    (ParButterfly) needs — its synchronization count ρ (paper footnote 6
+    approximates this by FD round counts; exact value = Σ over levels of
+    cascade rounds, lower-bounded by #distinct levels)."""
+    return int(np.unique(theta).size)
+
+
+# =====================================================================
+# Baseline: BE_PC — progressive-compression peeling (Wang et al. [67])
+# =====================================================================
+def wing_decomposition_bepc(
+    g: BipartiteGraph, tau: float = 0.25, device="cuda",
+) -> Tuple[np.ndarray, PeelStats]:
+    """Top-down progressive compression (the paper's strongest baseline,
+    table 3's BE_PC row).
+
+    Descending support thresholds t: extract the maximal subgraph whose
+    edges keep ≥ t butterflies (a t-wing superset — everything with
+    θ ≥ t), resolve it by bottom-up peeling *within the subgraph*, then
+    move down.  High-θ edges never receive updates from low-θ peels.
+    Dense-recount formulation."""
+    device = resolve_device(device)
+    m = g.m
+    edges = _t(g.edges.astype(np.int64), device)
+    shape = (g.n_u, g.n_v)
+    stats = PeelStats()
+
+    def recount(mask: np.ndarray) -> np.ndarray:
+        stats.recounts += 1
+        return _host_rint(_wing_recount(shape, edges, _t(mask, device)))
+
+    theta = np.zeros(m, dtype=np.int64)
+    resolved = np.zeros(m, dtype=bool)
+    sup0 = recount(np.ones(m, bool))
+    t = max(int(sup0.max()), 1)
+    thresholds = []
+    while t > 1:
+        thresholds.append(t)
+        t = max(1, int(t * tau))
+    thresholds.append(1)
+
+    for t in thresholds:
+        # candidate core: unresolved edges keeping >= t butterflies
+        core = ~resolved
+        while True:
+            sup = recount(core | resolved)
+            bad = core & (sup < t)
+            if not bad.any():
+                break
+            core &= ~bad
+        if not core.any():
+            continue
+        # resolve θ for the core by bottom-up peeling inside
+        # (core ∪ resolved); resolved edges are never peeled
+        alive = core | resolved
+        peelable = core.copy()
+        sup = recount(alive)
+        k = t
+        while peelable.any():
+            k = max(k, int(sup[peelable].min()))
+            while True:
+                S = peelable & (sup <= k)
+                if not S.any():
+                    break
+                theta[S] = k
+                alive &= ~S
+                peelable &= ~S
+                sup = recount(alive)
+                stats.rho_fd_total += 1
+        resolved |= core
+
+    theta[~resolved] = 0  # butterfly-free edges
+    return theta, stats

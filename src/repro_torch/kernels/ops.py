@@ -6,9 +6,11 @@ only this module.  Each wrapper dispatches by the device of the tensors
 it is given: a CUDA tensor launches the hand-written kernel or raises, a
 CPU tensor runs the plain version in ``kernels/ref.py``.  There is no
 other switch.  ``pair_wedge_counts``, ``tip_slot_loss`` and
-``support_update`` pad their inputs to (128, 128) multiples and
-``tile_row_counts`` to (``_row_bucket``, 128) as the JAX package's
-wrappers do, so both packages hand their kernels the same shapes.
+``support_update`` pad their inputs to (128, 128) multiples,
+``tile_row_counts`` to (``_row_bucket``, 128), the butterfly-counting
+wrappers to 128 multiples and ``pack_blooms`` to ``bb`` bloom rows and a
+128-multiple of links, as the JAX package's wrappers do, so both
+packages hand their kernels the same shapes.
 """
 from __future__ import annotations
 
@@ -18,24 +20,32 @@ import numpy as np
 import torch
 
 from . import _build
+from .bloom_update import bloom_update as _bloom_update
+from .butterfly_count import matmul, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
 from .support_update import support_update as _support_update
 from .wedge_count import wedge_count, wedge_count_tile
 
 __all__ = [
+    "bloom_update",
+    "edge_wedge_matrix",
     "fd_round_tip",
     "fd_round_wing",
     "launch_counts",
+    "pack_blooms",
     "pair_wedge_counts",
     "reset_launch_counts",
     "state_from_numpy",
     "support_update",
     "tile_row_counts",
     "tip_slot_loss",
+    "vertex_butterflies",
+    "vertex_butterflies_tiled",
 ]
 
 KERNELS = ("fd_round_wing", "fd_round_tip", "support_update", "wedge_count",
-           "wedge_count_tile")
+           "wedge_count_tile", "bloom_update", "vertex_count",
+           "vertex_count_tile", "matmul")
 
 
 def launch_counts() -> dict:
@@ -120,6 +130,125 @@ def support_update(pe1, pe2, alive, W, bp: int = 128, bk: int = 128):
         _pad2(pe1, bp, bk), _pad2(pe2, bp, bk), _pad2(alive, bp, bk),
         _pad_to(W.to(torch.float32), bp, 0).contiguous())
     return c1[:n, :kdim], c2[:n, :kdim], c[:n]
+
+
+def vertex_butterflies(A: torch.Tensor, bm: int = 128,
+                       bn: int = 128) -> torch.Tensor:
+    """Per-row butterfly counts (f32) of a 0/1 adjacency through the
+    fused ``vertex_count`` kernel; rows padded to ``bm``/``bn`` and
+    columns to 128 multiples, as the JAX wrapper pads."""
+    n = A.shape[0]
+    Ap = _pad_to(_pad_to(A.to(torch.float32), bm, 0), 128, 1)
+    # rows must also tile by bn for the column blocks of W
+    Ap = _pad_to(Ap, bn, 0).contiguous()
+    return vertex_count(Ap)[:n]
+
+
+def vertex_butterflies_tiled(A: torch.Tensor, tile_rows: int = 1024,
+                             bm: int = 128, bn: int = 128) -> torch.Tensor:
+    """Per-row butterfly counts with one row strip in flight at a time.
+
+    A host loop over ``tile_rows``-row strips of the padded adjacency,
+    each through the ``vertex_count_tile`` kernel, which skips the
+    diagonal mask; the exact self-pair term C(d_r, 2) is subtracted here
+    (in int64, after rounding the f32 strip sums).  Every strip is
+    padded to the same shape.  Returns int64 counts on ``A``'s device."""
+    n = A.shape[0]
+    A = A.to(torch.float32)
+    deg = A.sum(dim=1).to(torch.int64)
+    tile_rows = max(-(-tile_rows // bm) * bm, bm)
+    Ap = _pad_to(_pad_to(A, bn, 0), 128, 1).contiguous()
+    out = torch.zeros((n,), dtype=torch.float64, device=A.device)
+    for r0 in range(0, n, tile_rows):
+        r1 = min(r0 + tile_rows, n)
+        tile = _pad_to(Ap[r0:r1], tile_rows, 0).contiguous()
+        out[r0:r1] = vertex_count_tile(tile, Ap)[: r1 - r0].to(torch.float64)
+    self_pair = deg * (deg - 1) // 2
+    return torch.round(out).to(torch.int64) - self_pair
+
+
+def edge_wedge_matrix(A: torch.Tensor, bm: int = 128, bn: int = 128,
+                      bk: int = 128) -> torch.Tensor:
+    """M = (W − 1)·A with W = A·Aᵀ, both products through the ``matmul``
+    kernel.  Uses the identity (W − 1)·A = W·A − d_v so the −1 never
+    materializes.  Per-edge counts = M[u, v] − (d_u − 1), gathered by the
+    caller."""
+    n, nv = A.shape
+    Af = A.to(torch.float32)
+    Ap = _pad_to(_pad_to(Af, max(bm, bn, bk), 0), bk, 1).contiguous()
+    W = matmul(Ap, Ap, trans_b=True)
+    Ap2 = _pad_to(_pad_to(Af, bk, 0), bn, 1).contiguous()
+    W = W[: Ap2.shape[0], : Ap2.shape[0]].contiguous()
+    M = matmul(W, Ap2)
+    dv = torch.sum(Af, dim=0)
+    return M[:n, :nv] - dv[None, :]
+
+
+def pack_blooms(link_edge: np.ndarray, link_twin: np.ndarray,
+                link_bloom: np.ndarray, nb: int, bb: int = 256) -> dict:
+    """Bloom-major dense packing: row b holds bloom b's links, padded to
+    the max pairs-per-bloom (rounded to a lane multiple of 128) and the
+    rows to a multiple of ``bb``.  Padding slots carry edge ids −1 and
+    ``valid`` False."""
+    order = np.argsort(link_bloom, kind="stable")
+    le, lt, lb = link_edge[order], link_twin[order], link_bloom[order]
+    counts = np.bincount(lb, minlength=nb)
+    K = max(int(counts.max() if counts.size else 1), 1)
+    K = int(-(-K // 128) * 128)
+    nb_pad = int(-(-max(nb, 1) // bb) * bb)
+    off = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    col = np.arange(le.size) - off[lb]
+    dense = dict(
+        le=np.full((nb_pad, K), -1, np.int32),
+        lt=np.full((nb_pad, K), -1, np.int32),
+        valid=np.zeros((nb_pad, K), bool),
+        canon=np.zeros((nb_pad, K), bool),
+    )
+    dense["le"][lb, col] = le
+    dense["lt"][lb, col] = lt
+    dense["valid"][lb, col] = True
+    dense["canon"][lb, col] = le < lt
+    dense["nb"] = nb
+    dense["nb_pad"] = nb_pad
+    dense["K"] = K
+    return dense
+
+
+def _u8(x: torch.Tensor) -> torch.Tensor:
+    """0/1 flags as a contiguous uint8 tensor (a bool tensor is viewed,
+    not copied)."""
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.bool else x.to(torch.uint8)
+
+
+def bloom_update(peeled: torch.Tensor, alive_pair: torch.Tensor,
+                 k_alive: torch.Tensor, le: torch.Tensor, lt: torch.Tensor,
+                 canon: torch.Tensor, bb: int = 256):
+    """One batched BE-Index support-update round through the
+    ``bloom_update`` kernel.
+
+    ``peeled``: (m+1,) bool with a False sentinel last; ``alive_pair``
+    and ``canon``: [nb_pad, K] bool; ``k_alive``: [nb_pad] f32; ``le``/
+    ``lt``: [nb_pad, K] int32 link and twin edge ids, −1 on padding
+    (remapped to the sentinel here, before any gather).  The per-slot
+    losses are scattered onto edges with an int32 ``index_add_``.
+    Returns (loss per edge (m,) f32, c per bloom f32, new alive_pair)."""
+    if alive_pair.shape[0] % bb:
+        raise ValueError(f"bloom_update: {alive_pair.shape[0]} bloom rows, "
+                         f"not a multiple of bb={bb}; pad with pack_blooms")
+    sent = peeled.shape[0] - 1
+    lei = torch.where(le < 0, sent, le)
+    lti = torch.where(lt < 0, sent, lt)
+    pe = peeled[lei]
+    pt = peeled[lti]
+    contrib, c = _bloom_update(_u8(pe), _u8(pt), _u8(alive_pair), _u8(canon),
+                               k_alive.to(torch.float32).contiguous())
+    pair_dies = alive_pair & (pe | pt)
+    loss = torch.zeros((sent + 1,), dtype=torch.int32, device=peeled.device)
+    loss.index_add_(0, lei.reshape(-1),
+                    torch.round(contrib).to(torch.int32).reshape(-1))
+    return loss[:-1].to(torch.float32), c, alive_pair & ~pair_dies
 
 
 def state_from_numpy(packed: dict, device) -> dict:

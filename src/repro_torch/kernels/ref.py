@@ -9,6 +9,8 @@ are functional: inputs are never written.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = [
@@ -17,6 +19,12 @@ __all__ = [
     "support_update_ref",
     "fd_round_wing_ref",
     "fd_round_tip_ref",
+    "matmul_f32",
+    "matmul_ref",
+    "vertex_butterflies_ref",
+    "vertex_count_tile_ref",
+    "edge_wedge_matrix_ref",
+    "bloom_update_ref",
 ]
 
 BIG = torch.iinfo(torch.int32).max
@@ -127,3 +135,70 @@ def fd_round_tip_ref(sup, alive, theta, k, rounds, pa, pb, bf):
     loss.index_add_(0, pbg, torch.where(Sf[pag], bff, 0))
     return (sup - loss.reshape(B, E), alive.to(torch.int32), theta, k,
             rounds + live.to(torch.int32)[:, None])
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """Full float32 products for the block: TF32 keeps ~10 mantissa bits
+    and would round the integer counts these products carry."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32 whatever the process-wide precision
+    setting (the JAX package's ``Precision.HIGHEST``)."""
+    with _full_f32():
+        return torch.matmul(a, b)
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               trans_b: bool = False) -> torch.Tensor:
+    """The ``matmul`` kernel's function: ``a @ b`` (``a @ bᵀ`` with
+    ``trans_b``) of f32 matrices, f32 accumulation."""
+    return matmul_f32(a, b.T if trans_b else b)
+
+
+def vertex_butterflies_ref(A: torch.Tensor) -> torch.Tensor:
+    """⋈_u per row of A: Σ_{u'≠u} C(W[u,u'], 2) with W = A Aᵀ."""
+    W = matmul_f32(A, A.T)
+    W.fill_diagonal_(0.0)
+    return torch.sum(W * (W - 1.0) * 0.5, dim=1)
+
+
+def vertex_count_tile_ref(A_rows: torch.Tensor,
+                          A: torch.Tensor) -> torch.Tensor:
+    """One row strip's raw sums Σ_j C(W[r, j], 2) with W = A_rows Aᵀ and
+    no diagonal mask (the caller subtracts the self pair C(d_r, 2))."""
+    W = matmul_f32(A_rows, A.T)
+    return torch.sum(W * (W - 1.0) * 0.5, dim=1)
+
+
+def edge_wedge_matrix_ref(A: torch.Tensor) -> torch.Tensor:
+    """M = (W − 1) · A with W = A Aᵀ; per-edge counts are
+    M[u,v] − (d_u − 1) gathered at the edge list."""
+    W = matmul_f32(A, A.T)
+    return matmul_f32(W - 1.0, A)
+
+
+def bloom_update_ref(pe, pt, alive, canon, k_alive):
+    """Per-bloom batch support update (alg.6 inner loop), dense layout.
+
+    Inputs are [nb, K] bloom-major 0/1 matrices (bool or uint8, padded
+    with alive = 0) plus per-bloom pair counts ``k_alive`` [nb] f32.
+    Returns f32 (contrib [nb, K], c [nb]): c = dying pairs per bloom;
+    contrib = per-link support loss to be scattered onto link_edge by
+    the caller."""
+    pe, pt, alive, canon = (x != 0 for x in (pe, pt, alive, canon))
+    pair_dies = alive & (pe | pt)
+    c = torch.sum((pair_dies & canon).to(torch.float32), dim=1)
+    widow = alive & ~pe & pt
+    surv = alive & ~pair_dies
+    zero = torch.zeros((), dtype=torch.float32, device=c.device)
+    contrib = (torch.where(widow, k_alive[:, None] - 1.0, zero)
+               + torch.where(surv, c[:, None], zero))
+    return contrib, c

@@ -1,4 +1,4 @@
-"""Single-device csr peeling CLI of the PyTorch port.
+"""Single-device peeling CLI of the PyTorch port.
 
 The same flags as the JAX package's ``python -m repro.launch.peel`` for
 ``--kind/--engine/--fd-driver/--fused-fd/--use-pallas/--parts/--dataset/
@@ -8,19 +8,19 @@ the plain versions of the kernels).  It prints the same ``[peel] theta:
 ... sha256=...`` line, so a run of each CLI on the same flags can be
 compared digest for digest::
 
-    PYTHONPATH=src python -m repro_torch.launch.peel --kind tip
-    PYTHONPATH=src python -m repro_torch.launch.peel --kind wing --engine csr
+    PYTHONPATH=src python -m repro_torch.launch.peel --kind wing
+    PYTHONPATH=src python -m repro_torch.launch.peel --kind tip --engine dense
     PYTHONPATH=src python -m repro_torch.launch.peel --kind tip \
         --edges datasets/southern_women.tsv --emit-hierarchy sw_tip.npz
 
-``--edges`` is the real-graph path: out-of-core ingest, the tiled ⋈init
-(through the ``wedge_count_tile`` kernel with ``--use-pallas``), then the
-same engines fed through ``sup0``.  ``--emit-hierarchy`` builds the
-hierarchy on the device and writes the versioned npz artifact.
-
-Unsupported flag combinations exit with the JAX CLI's error texts; the
-engines not ported yet (``beindex``, the wing default, and ``dense``)
-exit naming their ROADMAP item.
+The engine defaults as the JAX CLI's: ``beindex`` for ``--kind wing``,
+``csr`` for ``--kind tip`` and for every ``--edges`` run; ``--engine
+dense`` runs for both kinds.  ``--edges`` is the real-graph path:
+out-of-core ingest, the tiled ⋈init (through the ``wedge_count_tile``
+kernel with ``--use-pallas``), then the engines fed through ``sup0``.
+``--emit-hierarchy`` builds the hierarchy on the device and writes the
+versioned npz artifact.  Unsupported flag combinations exit with the
+JAX CLI's error texts.
 """
 from __future__ import annotations
 
@@ -29,11 +29,6 @@ import hashlib
 import json
 import sys
 import time
-
-_NOT_PORTED = {
-    "beindex": "ROADMAP queue 1, item 8",
-    "dense": "ROADMAP queue 1, item 9",
-}
 
 
 class LaunchError(SystemExit):
@@ -77,12 +72,10 @@ def _validate(args) -> None:
         raise LaunchError(
             "--fused-fd fuses the device-side FD round; the host driver "
             "has no device round body (pass --fd-driver device|vmapped)")
-    if args.engine != "csr":
-        raise LaunchError(
-            f"--engine {args.engine} is not ported to repro_torch yet "
-            f"({_NOT_PORTED[args.engine]}); pass --engine csr")
     if args.fused_fd is None:
-        args.fused_fd = args.fd_driver in ("device", "vmapped")
+        # on where supported: the csr engine with a device-side FD driver
+        args.fused_fd = (args.engine == "csr"
+                         and args.fd_driver in ("device", "vmapped"))
 
 
 def sha256_int64(a) -> str:
@@ -228,8 +221,8 @@ def build_parser() -> argparse.ArgumentParser:
     """The CLI's argument parser."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.peel",
-        description="PBNG tip/wing decomposition on the csr engine "
-                    "(PyTorch port, single device)")
+        description="PBNG tip/wing decomposition (PyTorch port, single "
+                    "device)")
     ap.add_argument("--kind", "--mode", dest="kind",
                     choices=["wing", "tip"], default="wing",
                     help="entity universe to peel: edges (wing) or "
@@ -253,8 +246,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--parts", type=int, default=16)
     ap.add_argument("--engine", default=None,
                     choices=["beindex", "dense", "csr"],
-                    help="csr (the only ported engine); default as the "
-                         "JAX CLI: beindex for wing, csr for tip")
+                    help="peeling engine; default as the JAX CLI: "
+                         "beindex for wing, csr for tip and for --edges")
     ap.add_argument("--fd-driver", default="device",
                     choices=["device", "vmapped", "host"],
                     help="FD driver: per partition in LPT order (device), "

@@ -14,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import csr, peel, peelspec
+from repro_torch.core import counting, csr, peel, peelspec
+from repro_torch.core.beindex import build_beindex
 from repro_torch.core.distributed import (pack_fd_partitions_csr,
                                           pack_fd_partitions_tip_csr)
 from repro_torch.core.graph import powerlaw_bipartite, random_bipartite
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bloom_update import bloom_update
+from repro_torch.kernels.butterfly_count import (matmul, vertex_count,
+                                                 vertex_count_tile)
 from repro_torch.kernels.support_update import support_update
 from repro_torch.kernels.wedge_count import wedge_count, wedge_count_tile
 
@@ -128,7 +132,8 @@ def test_golden_cells_with_fused_kernels(card):
     for key in ("wing.pl80.P6.csr.device", "wing.pl80.P6.csr.vmapped",
                 "tip.pl80.P6.u.csr.device", "tip.pl80.P6.v.csr.vmapped"):
         parts = key.split(".")
-        kw = dict(P=6, fd_driver=parts[-1], fused=True, device=card)
+        kw = dict(P=6, engine="csr", fd_driver=parts[-1], fused=True,
+                  device=card)
         res = (peel.wing_decomposition(g, **kw) if parts[0] == "wing"
                else peel.tip_decomposition(g, side=parts[3], **kw))
         assert res.theta.tolist() == goldens[key]["theta"], key
@@ -199,7 +204,7 @@ def test_hierarchy_and_service_on_the_card_equal_the_cpu(card):
     for kind in ("wing", "tip"):
         fn = peel.wing_decomposition if kind == "wing" else \
             peel.tip_decomposition
-        res = fn(g, P=8, device="cpu")
+        res = fn(g, P=8, engine="csr", device="cpu")
         hc = build_hierarchy(g, res, kind=kind, device="cpu")
         hg = build_hierarchy(g, res, kind=kind, device=card)
         for f in _ARRAY_FIELDS:
@@ -221,3 +226,132 @@ def test_hierarchy_and_service_on_the_card_equal_the_cpu(card):
                            lca_entities(sc.forest, a, b))
         assert torch.equal(subgraph_at(sg.forest, [0]).cpu(),
                            subgraph_at(sc.forest, [0]))
+
+
+def _launched(name, fn):
+    before = ops.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()[name] - before
+
+
+@pytest.mark.parametrize("n_u,n_v,m", [(40, 30, 200), (130, 70, 700),
+                                       (257, 129, 1500), (300, 500, 6000)])
+def test_vertex_count_kernels_equal_plain(card, n_u, n_v, m):
+    g = random_bipartite(n_u, n_v, m, seed=n_u + m)
+    A = torch.from_numpy(g.adjacency()).to(card)
+    # unpadded: the kernel bounds-checks every load
+    got, n = _launched("vertex_count", lambda: vertex_count(A))
+    assert n == 1 and torch.equal(got, ref.vertex_butterflies_ref(A))
+    assert torch.equal(ops.vertex_butterflies(A),
+                       counting.vertex_butterflies(A))
+    for r0, r1 in ((0, n_u), (3, min(n_u, 131))):
+        strip = A[r0:r1].contiguous()
+        got, n = _launched("vertex_count_tile",
+                           lambda: vertex_count_tile(strip, A))
+        assert n == 1
+        assert torch.equal(got, ref.vertex_count_tile_ref(strip, A))
+    tiled, n = _launched("vertex_count_tile",
+                         lambda: ops.vertex_butterflies_tiled(A, 128))
+    assert n == -(-n_u // 128)
+    assert torch.equal(tiled, torch.round(
+        counting.vertex_butterflies(A).double()).to(torch.int64))
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (70, 257, 33), (128, 128, 128),
+                                   (300, 129, 1000)])
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_matmul_kernel_equals_plain(card, M, N, K, trans_b):
+    rng = np.random.default_rng(M + N + K)
+    a = torch.from_numpy(rng.integers(0, 40, (M, K)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(0, 40, (N, K) if trans_b else (K, N))
+                         .astype(np.float32))
+    a, b = a.to(card), b.to(card)
+    got, n = _launched("matmul", lambda: matmul(a, b, trans_b))
+    assert n == 1 and torch.equal(got, ref.matmul_ref(a, b, trans_b))
+
+
+@pytest.mark.parametrize("n_u,n_v,m", [(50, 40, 260), (200, 100, 1100)])
+def test_edge_wedge_matrix_on_the_card(card, n_u, n_v, m):
+    g = random_bipartite(n_u, n_v, m, seed=m)
+    A = torch.from_numpy(g.adjacency()).to(card)
+    got, n = _launched("matmul", lambda: ops.edge_wedge_matrix(A))
+    assert n == 2 and torch.equal(got, ref.edge_wedge_matrix_ref(A))
+    e = torch.from_numpy(g.edges).to(card, torch.int64)
+    du = A.sum(1)
+    assert torch.equal(got[e[:, 0], e[:, 1]] - (du[e[:, 0]] - 1),
+                       counting.edge_butterflies(A, e))
+
+
+@pytest.mark.parametrize("gname", sorted(GRAPHS))
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+def test_bloom_update_kernel_equals_plain(card, gname, frac):
+    g = GRAPHS[gname]()
+    be = build_beindex(g)
+    p = ops.pack_blooms(be.link_edge, be.link_twin, be.link_bloom, be.nb)
+    rng = np.random.default_rng(1)
+    peeled = torch.from_numpy(np.append(rng.random(g.m) < frac, False))
+    peeled = peeled.to(card)
+    le, lt, valid, canon = (torch.from_numpy(p[k]).to(card)
+                            for k in ("le", "lt", "valid", "canon"))
+    k_alive = torch.zeros(p["nb_pad"], device=card)
+    k_alive[: be.nb] = torch.from_numpy(be.bloom_k).to(card, torch.float32)
+    sent = g.m
+    lei, lti = (torch.where(x < 0, sent, x) for x in (le, lt))
+    flags = [ops._u8(x) for x in (peeled[lei], peeled[lti], valid, canon)]
+    got, n = _launched("bloom_update", lambda: bloom_update(*flags, k_alive))
+    assert n == 1
+    for a, b in zip(got, ref.bloom_update_ref(*flags, k_alive)):
+        assert torch.equal(a, b)
+    # one ops round equals the engine's update
+    sup0 = torch.from_numpy(be.edge_support(g.m).astype(np.int32)).to(card)
+    loss, c, _ = ops.bloom_update(peeled, valid, k_alive, le, lt, canon)
+    links = [torch.from_numpy(x).to(card)
+             for x in (be.link_edge, be.link_twin, be.link_bloom)]
+    _, k_l, sup_l, _ = peel._wing_update(
+        peeled[: g.m], torch.ones(be.n_links, dtype=torch.bool, device=card),
+        torch.from_numpy(be.bloom_k).to(card), sup0, *links,
+        max(be.nb, 1), g.m)
+    assert torch.equal(sup0 - loss.to(torch.int32), sup_l)
+    assert torch.equal(k_alive[: be.nb].to(torch.int32) - c[: be.nb].to(
+        torch.int32), k_l)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(card):
+    x = torch.zeros((4, 128), device=card)
+    with pytest.raises(TypeError):
+        vertex_count(x.double())
+    with pytest.raises(ValueError, match="shape"):
+        vertex_count_tile(x, torch.zeros((4, 64), device=card))
+    with pytest.raises(ValueError, match="shape"):
+        matmul(x, x)
+    u8 = torch.zeros((4, 128), dtype=torch.uint8, device=card)
+    with pytest.raises(TypeError):
+        bloom_update(u8.bool(), u8, u8, u8, torch.zeros(4, device=card))
+    # the kernel reads four slots at a time: odd K and a flag buffer off
+    # the 4-byte boundary are refused
+    odd = u8[:, :127].contiguous()
+    with pytest.raises(ValueError, match="K % 4"):
+        bloom_update(odd, odd, odd, odd, torch.zeros(4, device=card))
+    off = torch.zeros(4 * 128 + 1, dtype=torch.uint8, device=card)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        bloom_update(off.view(4, 128), u8, u8, u8,
+                     torch.zeros(4, device=card))
+
+
+def test_engine_golden_cells_on_the_card(card):
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           "peel_goldens.json")) as f:
+        goldens = json.load(f)
+    g = GRAPHS["pl80"]()
+    for key in ("wing.pl80.P6.beindex.device", "wing.pl80.P6.dense.device",
+                "tip.pl80.P6.u.dense.device", "tip.pl80.P3.v.dense.device"):
+        parts = key.split(".")
+        kw = dict(P=int(parts[2][1:]), engine=parts[-2], device=card)
+        res = (peel.wing_decomposition(g, **kw) if parts[0] == "wing"
+               else peel.tip_decomposition(g, side=parts[3], **kw))
+        assert res.theta.tolist() == goldens[key]["theta"], key
+        for f in ("part", "support_init"):
+            assert getattr(res, f).tolist() == goldens[key][f], (key, f)
+        for f in ("updates", "recounts", "rho_fd_total"):
+            assert getattr(res.stats, f) == goldens[key][f], (key, f)

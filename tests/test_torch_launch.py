@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's, digest for digest.
 
 Both CLIs print ``[peel] theta: ... sha256=<θ digest>``; at the CLI's
-default graph they must print the same line for ``--kind tip`` and for
-``--kind wing --engine csr`` (the port with ``--device cpu``), and on
+default graph they must print the same line for ``--kind tip`` and
+``--kind wing`` (the beindex default) and for each explicit engine (the
+port with ``--device cpu``), and on
 ``--edges datasets/southern_women.tsv --emit-hierarchy`` the same
 ingest, tiled-init and θ lines and equal artifacts.  Also: the port's
 CLI rejects what the JAX CLI rejects, with the same text.
@@ -36,7 +37,10 @@ def _theta_line(out):
 
 
 @pytest.mark.parametrize("flags", [("--kind", "tip"),
-                                   ("--kind", "wing", "--engine", "csr")])
+                                   ("--kind", "wing", "--engine", "csr"),
+                                   ("--kind", "wing"),
+                                   ("--kind", "wing", "--engine", "dense"),
+                                   ("--kind", "tip", "--engine", "dense")])
 def test_port_cli_prints_the_reference_digest(flags):
     ref = _cli("repro.launch.peel", *flags)
     port = _cli("repro_torch.launch.peel", *flags, "--device", "cpu")
@@ -58,13 +62,28 @@ def test_port_cli_rejects_like_the_reference(flags, text):
     assert isinstance(e.value, tcli.LaunchError)
 
 
-def test_port_cli_names_the_roadmap_item_of_unported_engines():
+def test_port_cli_names_the_roadmap_item_of_unported_engines(capsys):
+    """No engine is left unported: the wing default resolves to beindex
+    and ``--engine dense`` runs for both kinds, where both once exited
+    naming their ROADMAP item; the non-csr engines refuse the csr-only
+    flags with the JAX CLI's texts."""
     from repro_torch.launch import peel as tcli
 
-    with pytest.raises(tcli.LaunchError, match="ROADMAP queue 1, item 8"):
-        tcli.main(["--kind", "wing", "--device", "cpu"])
-    with pytest.raises(tcli.LaunchError, match="ROADMAP queue 1, item 9"):
-        tcli.main(["--kind", "tip", "--engine", "dense", "--device", "cpu"])
+    for argv, engine in ((["--kind", "wing"], "beindex"),
+                         (["--kind", "tip", "--engine", "dense"], "dense"),
+                         (["--kind", "wing", "--engine", "dense"], "dense")):
+        args = tcli.build_parser().parse_args(
+            [*argv, "--n-u", "40", "--n-v", "30", "--m", "200",
+             "--device", "cpu"])
+        out = tcli.run(args)
+        assert args.engine == out["engine"] == engine
+        assert args.fused_fd is False and out["fd_driver"] == "host"
+        assert "ROADMAP" not in capsys.readouterr().out
+    for flag, text in (("--use-pallas", "pass --engine csr"),
+                       ("--fused-fd", "fused csr FD round kernel"),
+                       ("--fd-driver=vmapped", "single-dispatch Phase 2")):
+        with pytest.raises(tcli.LaunchError, match=text):
+            tcli.main(["--kind", "wing", flag, "--device", "cpu"])
 
 
 DATASET = os.path.join(ROOT, "datasets", "southern_women.tsv")

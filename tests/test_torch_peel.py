@@ -6,7 +6,9 @@
 * the kernel route (``use_pallas``) on a subset of cells;
 * live θ, partition and round/update parity with ``repro.core.peel`` and
   the BUP oracle ``repro.core.ref`` on numpy-seeded random graphs;
-* the engine/driver validation texts and the device rule.
+* the engine/driver validation texts, the API defaults and the device
+  rule.  (The beindex and dense engines' cells are in
+  ``tests/test_torch_engines.py``.)
 """
 import json
 import os
@@ -116,8 +118,8 @@ def test_live_parity_with_reference_and_oracle(seed, P):
     np.testing.assert_array_equal(want.theta, core_ref.bup_wing_ref(jg))
     for fd in ("device", "vmapped", "host"):
         for fused in ((False, True) if fd != "host" else (False,)):
-            got = wing_decomposition(tg, P=P, fd_driver=fd, fused=fused,
-                                     device="cpu")
+            got = wing_decomposition(tg, P=P, engine="csr", fd_driver=fd,
+                                     fused=fused, device="cpu")
             assert _snapshot(got) == _snapshot(want), (fd, fused)
     for side in ("u", "v"):
         want = jtip(jg, side=side, P=P, engine="csr")
@@ -125,24 +127,67 @@ def test_live_parity_with_reference_and_oracle(seed, P):
                                       core_ref.bup_tip_ref(jg, side))
         for fd in ("device", "vmapped", "host"):
             for fused in ((False, True) if fd != "host" else (False,)):
-                got = tip_decomposition(tg, side=side, P=P, fd_driver=fd,
-                                        fused=fused, device="cpu")
+                got = tip_decomposition(tg, side=side, P=P, engine="csr",
+                                        fd_driver=fd, fused=fused,
+                                        device="cpu")
                 assert _snapshot(got) == _snapshot(want), (side, fd, fused)
 
 
-def test_validation_matches_reference():
+def test_validation_matches_reference(monkeypatch):
+    """Each call the JAX package refuses, the port refuses with the same
+    exception type: the engine/driver matrix, the tip/beindex refusal
+    and the dense engine's memory guard."""
     g = tgraph.random_bipartite(10, 8, 24, seed=0)
-    with pytest.raises(ValueError):
-        wing_decomposition(g, fd_driver="host", fused=True, device="cpu")
-    with pytest.raises(ValueError):
-        tip_decomposition(g, fd_driver="host", fused=True, device="cpu")
-    with pytest.raises(ValueError):
-        tip_decomposition(g, engine="beindex", device="cpu")
-    with pytest.raises(ValueError):
-        wing_decomposition(g, engine="nope", device="cpu")
-    for engine in ("dense", "beindex"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            wing_decomposition(g, engine=engine, device="cpu")
+    jg = JGraph.from_edges(g.n_u, g.n_v, g.edges)
+    cases = [
+        ("wing", dict(engine="csr", fd_driver="host", fused=True),
+         ValueError),
+        ("tip", dict(engine="csr", fd_driver="host", fused=True),
+         ValueError),
+        ("wing", dict(fused=True), ValueError),        # fused is csr only
+        ("tip", dict(use_pallas=True), ValueError),    # ... so is use_pallas
+        ("tip", dict(engine="beindex"), ValueError),
+        ("wing", dict(engine="nope"), ValueError),
+        ("wing", dict(fd_driver="nope"), ValueError),
+    ]
+    for kind, kw, exc in cases:
+        for fn, extra in (((jwing, jtip), {}),
+                          ((wing_decomposition, tip_decomposition),
+                           dict(device="cpu"))):
+            call = fn[0] if kind == "wing" else fn[1]
+            with pytest.raises(exc):
+                call(jg if not extra else g, **kw, **extra)
+    monkeypatch.setenv("REPRO_DENSE_MAX_ELEMS", str(g.n_u * g.n_v - 1))
+    for kind in ("wing", "tip"):
+        for call, gg, extra in (
+                ((jwing if kind == "wing" else jtip), jg, {}),
+                ((wing_decomposition if kind == "wing"
+                  else tip_decomposition), g, dict(device="cpu"))):
+            with pytest.raises(MemoryError, match="use engine='csr'"):
+                call(gg, engine="dense", **extra)
+
+
+def test_api_defaults_match_reference():
+    """The public entry points default as the JAX package's: dense for
+    tip, beindex for wing, csr for ``build_peel_spec``; every other
+    shared keyword too.  The port adds only ``device``."""
+    import inspect
+
+    from repro.core import peel as jpeel
+    from repro_torch.core import peel as tpeel
+
+    for name in ("tip_decomposition", "wing_decomposition",
+                 "build_peel_spec", "wing_decomposition_bepc"):
+        want = inspect.signature(getattr(jpeel, name)).parameters
+        got = inspect.signature(getattr(tpeel, name)).parameters
+        assert list(got) == [*want, "device"], name
+        for key, p in want.items():
+            assert got[key].default == p.default, (name, key)
+        assert got["device"].default == "cuda", name
+    assert inspect.signature(tpeel.tip_decomposition).parameters[
+        "engine"].default == "dense"
+    assert inspect.signature(tpeel.wing_decomposition).parameters[
+        "engine"].default == "beindex"
 
 
 def test_cuda_is_the_default_and_never_falls_back():
