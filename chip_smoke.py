@@ -7,7 +7,7 @@ Run from the repository root, with no arguments::
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
 
-1. setup — build the nine CUDA kernels from the five sources in
+1. setup — build the ten CUDA kernels from the six sources in
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
@@ -53,6 +53,18 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``--engine dense``; its BE-Index through ``ops.bloom_update`` round by
    round over seeded peel sets, held to the plain version and to the
    engine's own update every round.
+9. lm — the dense-family LM serving path and the ``flash_attention``
+   kernel: the kernel against its plain version at ChatGLM3-6B's prefill
+   shape (f32 and bf16), D = 64 (GQA), D = 256 (MQA), a ragged non-causal
+   and an offset case, timed beside the plain version and SDPA; ChatGLM3-6B
+   at full width and depth (random weights from a ``torch.Generator``):
+   ``prefill`` at b=4, s=2048 (28 kernel launches a call), its logits and
+   ``forward``'s at 513 positions held to teacher-forced ``serve_step``;
+   ``ContinuousBatcher`` serving 8 requests through 4 slots, then again
+   with an EOS; the depth-2 model on ``numpy_params`` held to the JAX
+   package's logits in ``tests/goldens/torch_lm.json`` (recorded by
+   ``tests/goldens/record_torch_lm.py``); and ``python -m
+   repro_torch.launch.serve --arch chatglm3_6b`` in its own process.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -95,6 +107,8 @@ KERNEL_INFO = {
                           "src/repro/kernels/butterfly_count.py:98"),
     "matmul": ("src/repro_torch/kernels/csrc/butterfly_count.cu",
                "src/repro/kernels/butterfly_count.py:149"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:65"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
@@ -1000,6 +1014,417 @@ def phase_real_graphs(realdata, dev, tmp, launches) -> dict:
     return seconds
 
 
+# ---------------------------------------------------------------------
+# phase 9: the LM serving path (dense family) and the flash_attention
+# kernel
+# ---------------------------------------------------------------------
+BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor-core peak (dense)
+LOGIT_ATOL = 2e-3  # f32 logits of two routes: rounding only (module docstring)
+ATTN_ATOL = {"float32": 2e-3, "bfloat16": 3e-2}  # the JAX package's kernel tolerances
+
+# (label, q shape, kv shape, causal, offset, dtype); the first is the row
+# of the kernels line: ChatGLM3-6B's prefill attention, f32
+LM = dict(
+    arch="chatglm3_6b", batch=4, seq=2048, stride=4,
+    kernel_cases=(
+        ("chatglm3-6b prefill f32", (4, 32, 2048, 128), (4, 2, 2048, 128),
+         True, None, "float32"),
+        ("chatglm3-6b prefill bf16", (4, 32, 2048, 128), (4, 2, 2048, 128),
+         True, None, "bfloat16"),
+        ("D=64 GQA 32/4", (4, 32, 2048, 64), (4, 4, 2048, 64), True, None,
+         "float32"),
+        ("D=256 MQA 8/1", (4, 8, 2048, 256), (4, 1, 2048, 256), True, None,
+         "float32"),
+        ("ragged non-causal S=1500", (2, 16, 1500, 128), (2, 16, 1500, 128),
+         False, None, "float32"),
+        ("offset sq=128 < sk=384", (4, 32, 128, 128), (4, 2, 384, 128), True,
+         None, "float32"),
+    ),
+    serve=dict(slots=4, requests=8, prompt=(16, 128), max_new=32, max_seq=256,
+               eos_request=1, eos_index=7),
+    cli=["--arch", "chatglm3_6b", "--batch", "4", "--prompt-len", "16",
+         "--gen", "16"],
+)
+
+
+def attention_case(case, dev, gen):
+    """A kernel case's inputs, drawn on ``dev`` from ``gen``."""
+    import torch
+
+    _, qs, ks, causal, offset, dt = case
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+               for s in (qs, ks, ks))
+    return q, k, v, causal, offset
+
+
+def attention_work(q, k, causal, offset):
+    """(operations, bytes) the function needs on these inputs: two
+    multiply-adds per visible (query, key) pair and head dim, q/k/v read
+    and the output written once."""
+    B, H, sq, D = q.shape
+    KVH, sk = k.shape[1], k.shape[2]
+    off = sk - sq if offset is None else offset
+    if causal:
+        seen = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
+    else:
+        seen = sq * sk
+    ops_count = 4.0 * B * H * D * seen
+    nbytes = q.element_size() * (2 * B * H * sq * D + 2 * B * KVH * sk * D)
+    return ops_count, nbytes
+
+
+def defined_rows(q, k, causal, offset):
+    """Query rows that see at least one key (the JAX oracle leaves the
+    others NaN)."""
+    import torch
+
+    sq, sk = q.shape[2], k.shape[2]
+    off = sk - sq if offset is None else offset
+    rows = torch.arange(sq, device=q.device)
+    return rows + off >= 0 if causal else rows >= 0
+
+
+def check_attention(cases, dev, reps):
+    """Each case through ``ops.flash_attention`` against its plain
+    version on the same inputs, timed with the plain version and, where
+    sq == sk and the mask is causal, SDPA (top-left aligned, so only
+    there the same function).  Returns the kernels-line row (the first
+    case) with every case's numbers under ``cases``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for case in cases:
+        label, dt = case[0], case[5]
+        q, k, v, causal, offset = attention_case(case, dev, gen)
+        got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
+        rows = defined_rows(q, k, causal, offset)
+        err = (got[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
+        if not err <= ATTN_ATOL[dt]:
+            raise AssertionError(f"flash_attention {label}: max abs err {err} "
+                                 f"> {ATTN_ATOL[dt]} against the plain version")
+        del got, want
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 offset=offset), reps)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, offset=offset), max(1, reps // 4))
+        library_ms = None
+        if causal and q.shape[2] == k.shape[2]:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)
+        ops_count, nbytes = attention_work(q, k, causal, offset)
+        fp32 = ops_count / FP32_FLOP_PER_S * 1e3
+        bf16 = ops_count / BF16_FLOP_PER_S * 1e3
+        mem = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(case=label, shape_q=list(q.shape), shape_kv=list(k.shape),
+                   dtype=dt, causal=causal, offset=offset, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_fp32_ms=max(fp32, mem), bound_bf16_ms=max(bf16, mem),
+                   ops_per_call=ops_count, bytes_per_call=nbytes)
+        log(f"[smoke]   flash_attention {label}: max abs err {err:.2e} (tol "
+            f"{ATTN_ATOL[dt]}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA {library_ms} ms; {ops_count / 1e9:.1f} G ops, "
+            f"{nbytes / 1e6:.1f} MB -> bound {row['bound_fp32_ms']:.3f} ms "
+            f"FP32, {row['bound_bf16_ms']:.3f} ms bf16 tensor cores")
+        out.append(row)
+        del q, k, v
+    first = out[0]
+    bound = first["bound_fp32_ms" if first["dtype"] == "float32"
+                  else "bound_bf16_ms"]
+    return dict(ms=first["ms"], plain_ms=first["plain_ms"],
+                library_ms=first["library_ms"], bound_ms=bound,
+                bound_by="operations", max_abs_err=max(r["max_abs_err"]
+                                                      for r in out),
+                bound_fp32_ms=first["bound_fp32_ms"],
+                bound_bf16_ms=first["bound_bf16_ms"],
+                ops_per_call=first["ops_per_call"],
+                bytes_per_call=first["bytes_per_call"],
+                library="torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True, enable_gqa=True), sq == sk only",
+                calls_checked=len(out), cases=out)
+
+
+def close_logits(label, got, want, atol=LOGIT_ATOL) -> float:
+    err = (got.double() - want.double()).abs().max().item()
+    if not err <= atol:
+        raise AssertionError(f"{label}: logits differ by {err} > {atol}")
+    return err
+
+
+def hold_golden(label, logits, want, ids) -> float:
+    """``logits`` [b, len(positions), V] held to a recorded summary:
+    the subset logits and logsumexp within ``LOGIT_ATOL``, the argmax
+    where the recorded top-2 gap exceeds twice that."""
+    import numpy as np
+    import torch
+
+    x = logits.double().cpu()
+    err = close_logits(f"{label} subset", x[..., ids],
+                       torch.tensor(want["subset"], dtype=torch.float64))
+    lse = torch.logsumexp(x, dim=-1)
+    err = max(err, close_logits(f"{label} logsumexp", lse,
+                                torch.tensor(want["logsumexp"],
+                                             dtype=torch.float64)))
+    gap = np.asarray(want["top2_gap"])
+    amax = x.argmax(dim=-1).numpy()
+    sure = gap > 2 * LOGIT_ATOL
+    if not np.array_equal(amax[sure], np.asarray(want["argmax"])[sure]):
+        raise AssertionError(f"{label}: argmax {amax.tolist()} != JAX "
+                             f"{want['argmax']} (gaps {gap.tolist()})")
+    return err
+
+
+def teacher_forced(model, tokens, positions, dev):
+    """Logits [b, len(positions), V] of ``serve_step`` fed ``tokens`` one
+    position at a time (no attention kernel on this route)."""
+    import torch
+
+    from repro_torch.models import init_cache
+
+    b, s = tokens.shape
+    cache = init_cache(model.cfg, b, s, dev, torch.float32)
+    want = set(positions)
+    out = []
+    with torch.no_grad():
+        for i in range(max(positions) + 1):
+            logits, cache = model.serve_step(cache, tokens[:, i], i)
+            if i in want:
+                out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def profile_decode(model, tokens, seq, dev, steps=8) -> dict:
+    """Device time of ``steps`` decode steps against a ``seq``-slot cache
+    by kernel class (``torch.profiler``, CUDA activity only), beside the
+    window's host-clock time; None where the profiler saw no device time
+    (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import init_cache
+
+    if torch.device(dev).type != "cuda":  # a CPU rehearsal has no kernels
+        return dict(device_ms_per_step=None)
+    cache = init_cache(model.cfg, tokens.shape[0], seq, dev, torch.float32)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.serve_step(cache, tokens[:, i], i)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if device_ms == 0:
+        log("[smoke]   decode profile: the profiler saw no device time "
+            "(not measured)")
+        return dict(device_ms_per_step=None)
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if "gemm" in e.key.lower()) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    out = dict(device_ms_per_step=device_ms / steps,
+               gemm_ms_per_step=gemm_ms / steps,
+               wall_ms_per_step=wall_ms / steps,
+               busy_share=device_ms / wall_ms,
+               top_kernels={e.key[:60]: e.self_device_time_total / 1e3 / steps
+                            for e in top})
+    log(f"[smoke]   decode profile ({steps} steps, cache {seq}): device "
+        f"{out['device_ms_per_step']:.2f} ms/step, of it GEMM "
+        f"{out['gemm_ms_per_step']:.2f}; host clock "
+        f"{out['wall_ms_per_step']:.2f} ms/step under the profiler (busy "
+        f"share {out['busy_share']:.3f}); top kernels ms/step "
+        f"{out['top_kernels']}")
+    return out
+
+
+def lm_golden_phase(golden, cfg, dev) -> dict:
+    """Depth-2 ChatGLM3-6B at full width on ``numpy_params``: forward and
+    teacher-forced decode held to the JAX package's recorded logits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import DenseLM
+    from repro_torch.models.convert import numpy_params, params_from_numpy
+
+    t0 = time.perf_counter()
+    tree = numpy_params(cfg, seed=golden["seed"])
+    for path, want in golden["param_check"].items():
+        node = tree
+        for p in path.split("."):
+            node = node[p]
+        first = [float(x) for x in node.reshape(-1)[:4]]
+        total = float(node.sum(dtype=np.float64))
+        # the float64 sum's order may differ between numpy builds
+        if first != want["first"] or abs(total - want["sum"]) > 1e-6 * (
+                1 + abs(want["sum"])):
+            got = dict(first=first, sum=total)
+            raise AssertionError(f"numpy_params {path}: {got} != the "
+                                 f"recorder's {want} (another numpy stream)")
+    model = DenseLM(cfg, params_from_numpy(tree, cfg, dev))
+    del tree
+    gen_s = time.perf_counter() - t0
+    tokens = torch.tensor(golden["tokens"], device=dev)
+    pos, ids = golden["positions"], golden["ids"]
+    with torch.no_grad():
+        fwd = model(tokens)[:, pos]
+    dec = teacher_forced(model, tokens, pos, dev)
+    errs = dict(forward=hold_golden("golden forward", fwd, golden["forward"], ids),
+                decode=hold_golden("golden decode", dec, golden["decode"], ids),
+                forward_vs_decode=close_logits("golden forward vs decode",
+                                               fwd, dec))
+    log(f"[smoke]   golden (depth {cfg.n_layers}, full width): forward and "
+        f"serve_step held to the JAX package's logits, max abs errs {errs}; "
+        f"weights made in {gen_s:.1f} s")
+    return errs
+
+
+def serve_requests(cfg, params, spec, dev, vocab):
+    """``ContinuousBatcher`` serving ``spec['requests']`` seeded prompts
+    through ``spec['slots']`` slots; then the first batch again with an
+    EOS on one request, which must stop at its first generated EOS while
+    the others repeat their tokens."""
+    import numpy as np
+
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    rng = np.random.default_rng(3)
+    lo, hi = spec["prompt"]
+    prompts = [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(spec["requests"])]
+
+    def run(reqs):
+        eng = ContinuousBatcher(cfg, params, n_slots=spec["slots"],
+                                max_seq=spec["max_seq"], device=dev)
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        done = eng.run()
+        sync(dev)
+        return done, time.perf_counter() - t0, eng.steps
+
+    done, dt, steps = run([Request(uid=i, prompt=p, max_new=spec["max_new"])
+                           for i, p in enumerate(prompts)])
+    if [r.uid for r in done] != list(range(len(prompts))) or any(
+            len(r.output) != spec["max_new"] for r in done):
+        raise AssertionError(f"serving: {len(done)} of {len(prompts)} "
+                             "requests completed with max_new tokens")
+    e, k = spec["eos_request"], spec["eos_index"]
+    eos = done[e].output[k]
+    stop = done[e].output.index(eos)
+    again, dt2, steps2 = run([
+        Request(uid=i, prompt=prompts[i], max_new=spec["max_new"],
+                eos=eos if i == e else None) for i in range(spec["slots"])])
+    for r in again:
+        want = done[r.uid].output[:stop + 1] if r.uid == e else done[r.uid].output
+        if r.output != want:
+            raise AssertionError(f"serving with EOS: request {r.uid} gave "
+                                 f"{r.output}, expected {want}")
+    tokens = sum(len(p) + spec["max_new"] for p in prompts)
+    log(f"[smoke]   serving: {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]}) through {spec['slots']} slots in "
+        f"{steps} steps, {dt:.2f} s ({tokens / dt:.1f} tok/s incl. prompts); "
+        f"EOS rerun of the first batch: request {e} stopped after "
+        f"{stop + 1} tokens, {steps2} steps, {dt2:.2f} s")
+    return dict(requests=len(prompts), steps=steps, seconds=dt,
+                tokens_per_s=tokens / dt, eos_steps=steps2, eos_seconds=dt2)
+
+
+def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
+             reps=10) -> tuple:
+    """Phase 9; returns (the flash_attention row, the LM numbers)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import DenseLM, init_params
+
+    on_card = torch.device(dev).type == "cuda"
+    row = check_attention(lm["kernel_cases"], dev, reps)
+    info = {}
+
+    # ---- the full-width model: prefill and forward against the decode path
+    cfg = cfg or get_config(lm["arch"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev, torch.float32)
+    model = DenseLM(cfg, params)
+    sync(dev)
+    info["init_s"] = time.perf_counter() - t0
+    b, s = lm["batch"], lm["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            last = model.prefill(tokens)
+            sync(dev)
+            prefill_s.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            expect("prefill", "kernel launches", counts,
+                   {k: (cfg.n_layers * on_card if k == "flash_attention" else 0)
+                    for k in ops.KERNELS})
+            launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                           + counts["flash_attention"])
+        pos = sorted(set(range(0, s, lm["stride"])) | {s - 1})
+        fwd = model(tokens)[:, pos]
+    t0 = time.perf_counter()
+    dec = teacher_forced(model, tokens, pos, dev)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    info.update(
+        prefill_s=prefill_s, prefill_tok_s=[b * s / t for t in prefill_s],
+        decode_s=decode_s, decode_tok_s=b * s / decode_s,
+        positions_compared=len(pos),
+        prefill_vs_decode=close_logits("prefill vs teacher-forced decode",
+                                       last, dec[:, -1]),
+        forward_vs_decode=close_logits("forward vs teacher-forced decode",
+                                       fwd, dec))
+    del fwd, dec, last
+    log(f"[smoke]   {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads): prefill b={b} s={s} in "
+        f"{prefill_s} s ({info['prefill_tok_s']} tok/s), {cfg.n_layers} "
+        f"flash_attention launches each; {s} teacher-forced decode steps in "
+        f"{decode_s:.2f} s ({info['decode_tok_s']:.1f} tok/s); prefill and "
+        f"forward ({len(pos)} positions) vs decode max abs err "
+        f"{info['prefill_vs_decode']:.2e} / {info['forward_vs_decode']:.2e} "
+        f"(atol {LOGIT_ATOL})")
+
+    info["serve"] = serve_requests(cfg, params, lm["serve"], dev, cfg.vocab)
+    info["decode_profile"] = profile_decode(model, tokens, s, dev)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # ---- the recorded depth-2 golden
+    golden_cfg = golden_cfg or dataclasses.replace(
+        get_config(golden["arch"]), n_layers=golden["n_layers"])
+    info["golden"] = lm_golden_phase(golden, golden_cfg, dev)
+    torch.cuda.empty_cache()
+
+    # ---- the CLI, in its own process
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *lm["cli"],
+           "--device", str(dev)]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0 or "[serve] sample:" not in proc.stdout:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    info["cli_s"] = time.perf_counter() - t0
+    info["cli"] = proc.stdout.strip().splitlines()
+    log(f"[smoke]   {' '.join(cmd[1:])}: exit 0 in {info['cli_s']:.1f} s: "
+        f"{info['cli']}")
+    return row, info
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.parse_args()
@@ -1028,15 +1453,18 @@ def main() -> int:
     with open(os.path.join(ROOT, "tests", "goldens",
                            "torch_engines.json")) as f:
         engines = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens", "torch_lm.json")) as f:
+        lm_golden = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        return run_phases(fullsize, realdata, engines, dev, smi, tmp)
+        return run_phases(fullsize, realdata, engines, lm_golden, dev, smi,
+                          tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(fullsize, realdata, engines, dev, smi, tmp) -> int:
+def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
     import torch
 
     with Phase("1-setup"):
@@ -1104,6 +1532,9 @@ def run_phases(fullsize, realdata, engines, dev, smi, tmp) -> int:
                                                     launches)
         rows.update(engine_rows)
 
+    with Phase("9-lm"):
+        rows["flash_attention"], lm_info = phase_lm(lm_golden, dev, launches)
+
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -1117,11 +1548,12 @@ def run_phases(fullsize, realdata, engines, dev, smi, tmp) -> int:
             bound_by=r.get("bound_by", "bytes"),
             library_ms=r.get("library_ms"),
             **{key: r[key] for key in ("bytes_per_call", "ops_per_call",
-                                       "bound_fp32_ms", "library")
+                                       "bound_fp32_ms", "bound_bf16_ms",
+                                       "library")
                if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
-                        engine_seconds=engine_seconds)))
+                        engine_seconds=engine_seconds, lm=lm_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -539,15 +539,20 @@ def pair_wedge_counts(
     w: Wedges,
     alive_e: Optional[torch.Tensor] = None,
     use_pallas: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
-    """Alive wedge count W_p per pair (int32, ``max(n_pairs, 1)``).
+    """Alive wedge count W_p per pair (int32, ``max(n_pairs, 1)``), on
+    ``alive_e``'s device if given, else on ``device`` (refused where it
+    names a card that is missing).
 
     ``use_pallas`` (the JAX package's name for the kernel route) runs the
     per-pair reduction through the ``wedge_count`` kernel over the
     pairs-major slot matrix instead of a segment sum."""
     if alive_e is not None:
         device = alive_e.device
+    else:
+        from .peel import resolve_device
+        device = resolve_device(device)
     wp = torch.from_numpy(w.wedge_pair).to(device)
     if alive_e is None:
         alive_w = torch.ones((w.n_wedges,), dtype=torch.bool, device=device)

@@ -30,7 +30,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
                          "build", "repro_torch_kernels")
 SOURCES = ("fd_round", "support_update", "wedge_count", "bloom_update",
-           "butterfly_count")
+           "butterfly_count", "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

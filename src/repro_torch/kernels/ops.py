@@ -10,7 +10,8 @@ other switch.  ``pair_wedge_counts``, ``tip_slot_loss`` and
 ``tile_row_counts`` to (``_row_bucket``, 128), the butterfly-counting
 wrappers to 128 multiples and ``pack_blooms`` to ``bb`` bloom rows and a
 128-multiple of links, as the JAX package's wrappers do, so both
-packages hand their kernels the same shapes.
+packages hand their kernels the same shapes.  ``flash_attention`` pads
+nothing: its kernel masks the ragged edge itself.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from . import _build
 from .bloom_update import bloom_update as _bloom_update
 from .butterfly_count import matmul, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
+from .flash_attention import flash_attention as _flash_attention
 from .support_update import support_update as _support_update
 from .wedge_count import wedge_count, wedge_count_tile
 
@@ -31,6 +33,7 @@ __all__ = [
     "edge_wedge_matrix",
     "fd_round_tip",
     "fd_round_wing",
+    "flash_attention",
     "launch_counts",
     "pack_blooms",
     "pair_wedge_counts",
@@ -45,7 +48,7 @@ __all__ = [
 
 KERNELS = ("fd_round_wing", "fd_round_tip", "support_update", "wedge_count",
            "wedge_count_tile", "bloom_update", "vertex_count",
-           "vertex_count_tile", "matmul")
+           "vertex_count_tile", "matmul", "flash_attention")
 
 
 def launch_counts() -> dict:
@@ -182,6 +185,23 @@ def edge_wedge_matrix(A: torch.Tensor, bm: int = 128, bn: int = 128,
     M = matmul(W, Ap2)
     dv = torch.sum(Af, dim=0)
     return M[:n, :nv] - dv[None, :]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, offset=None) -> torch.Tensor:
+    """Softmax attention through the ``flash_attention`` kernel.
+
+    The JAX package's signature: q [B, H, Sq, D], k/v [B, H, Sk, D],
+    causal mask aligned bottom-right by the *logical* offset sk − sq
+    (``offset=None``).  Beyond it, k/v may hold fewer heads (H a multiple
+    of KVH: GQA/MQA without repeating them) and ``offset`` may be given,
+    as ``models.layers.blockwise_attention`` does (its ``q_offset``: key
+    j visible to query i iff j <= i + offset).  Scores are scaled by
+    D^-1/2.  A row that sees no key gives 0."""
+    sq, D = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    return _flash_attention(q, k, v, causal=causal, scale=D ** -0.5,
+                            offset=sk - sq if offset is None else offset)
 
 
 def pack_blooms(link_edge: np.ndarray, link_twin: np.ndarray,

@@ -25,6 +25,7 @@ __all__ = [
     "vertex_count_tile_ref",
     "edge_wedge_matrix_ref",
     "bloom_update_ref",
+    "flash_attention_ref",
 ]
 
 BIG = torch.iinfo(torch.int32).max
@@ -202,3 +203,36 @@ def bloom_update_ref(pe, pt, alive, canon, k_alive):
     contrib = (torch.where(widow, k_alive[:, None] - 1.0, zero)
                + torch.where(surv, c[:, None], zero))
     return contrib, c
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, scale=None,
+                        offset=None):
+    """Plain softmax attention — the ``flash_attention`` kernel's function.
+
+    q: [B, H, Sq, D]; k/v: [B, KVH, Sk, D] with H a multiple of KVH (query
+    head h reads key/value head h // (H / KVH); with KVH == H this is the
+    JAX package's oracle, "kv heads already broadcast").  With ``causal``,
+    key j is visible to query i iff j <= i + ``offset``; the default
+    offset sk − sq aligns the last query with the last key.  Scores,
+    softmax and products are f32 (full precision); the output has q's
+    dtype.  A row that sees no key gives 0 (the JAX oracle's −inf mask
+    leaves it NaN).
+    """
+    B, H, sq, D = q.shape
+    KVH, sk = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    offset = sk - sq if offset is None else offset
+    qf = q.to(torch.float32).reshape(B, KVH, (H // KVH) * sq, D)
+    s = matmul_f32(qf, k.to(torch.float32).transpose(-1, -2)) * scale
+    s = s.reshape(B, KVH, H // KVH, sq, sk)
+    if causal:
+        seen = (torch.arange(sk, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None] + offset)
+        s = s.masked_fill(~seen, float("-inf"))
+        p = torch.where(seen.any(dim=1)[:, None], torch.softmax(s, dim=-1),
+                        0.0)
+    else:
+        p = torch.softmax(s, dim=-1)
+    out = matmul_f32(p.reshape(B, KVH, (H // KVH) * sq, sk),
+                     v.to(torch.float32))
+    return out.reshape(B, H, sq, v.shape[-1]).to(q.dtype)

@@ -182,4 +182,4 @@ def test_pair_wedge_counts_match(name):
                                      use_pallas=use_pallas)
         _eq(got, want)
         assert got.dtype == torch.int32
-    _eq(tcsr.pair_wedge_counts(tw), jcsr.pair_wedge_counts(jw))
+    _eq(tcsr.pair_wedge_counts(tw, device="cpu"), jcsr.pair_wedge_counts(jw))

@@ -355,3 +355,91 @@ def test_engine_golden_cells_on_the_card(card):
             assert getattr(res, f).tolist() == goldens[key][f], (key, f)
         for f in ("updates", "recounts", "rho_fd_total"):
             assert getattr(res.stats, f) == goldens[key][f], (key, f)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-3),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("qs,ks,causal,offset", [
+    ((2, 8, 256, 128), (2, 2, 256, 128), True, None),   # GQA 4:1, D 128
+    ((2, 8, 200, 64), (2, 1, 200, 64), True, None),     # MQA, ragged tail
+    ((1, 4, 100, 256), (1, 4, 300, 256), False, None),  # D 256, non-causal
+    ((2, 4, 64, 32), (2, 2, 192, 32), True, None),      # offset sk - sq
+    ((2, 4, 96, 128), (2, 2, 160, 128), True, 0),       # explicit offset
+    ((1, 2, 128, 64), (1, 2, 64, 64), True, None),      # rows that see no key
+])
+def test_flash_attention_kernel_matches_plain(card, dtype, atol, qs, ks,
+                                              causal, offset):
+    g = torch.Generator(device=card).manual_seed(qs[2] + ks[2])
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in (qs, ks, ks))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_flash_attention_kernel_reads_strided_heads(card):
+    """The model's q/k/v are transposed views of [b, s, heads, d]."""
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((2, 96, 8, 64), generator=g, device=card)
+    kv = torch.randn((2, 2, 96, 2, 64), generator=g, device=card)
+    q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, offset=0)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True, offset=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+def test_flash_attention_refusals(card):
+    q = torch.zeros((1, 2, 64, 64), device=card)
+    with pytest.raises(TypeError, match="expected float32 or bfloat16"):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="expected cuda"):
+        ops.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="multiple of KVH"):
+        ops.flash_attention(q, q[:, :1].expand(1, 3, 64, 64).contiguous(), q)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.clone().requires_grad_(), q, q)
+
+
+def test_lm_prefill_goes_through_the_kernel(card):
+    """A reduced ChatGLM3 prefill on the card: one launch per layer, and
+    its logits equal the teacher-forced decode path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DenseLM, init_cache, init_params, reduced
+
+    cfg = reduced(get_config("chatglm3_6b"), n_layers=3)
+    model = DenseLM(cfg, init_params(cfg, torch.Generator(card).manual_seed(0),
+                                     card))
+    tokens = torch.randint(0, cfg.vocab, (2, 50), device=card)
+    ops.reset_launch_counts()
+    last = model.prefill(tokens)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    cache = init_cache(cfg, 2, 50, card)
+    for i in range(50):
+        logits, cache = model.serve_step(cache, tokens[:, i], i)
+    torch.testing.assert_close(last, logits, rtol=0, atol=1e-4)
+
+
+def test_serving_engine_on_the_card(card):
+    """``ContinuousBatcher`` with ``device="cuda"`` and the weights on
+    cuda:0 serves every request, as on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, reduced
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg = reduced(get_config("tinyllama_1_1b"), n_layers=2)
+    params = init_params(cfg, torch.Generator(card).manual_seed(0), card)
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_seq=32)
+    for i in range(3):
+        eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new=4))
+    done = eng.run()
+    assert [len(r.output) for r in done] == [4, 4, 4]
