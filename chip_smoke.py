@@ -9,7 +9,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 
 1. setup — build the ten CUDA kernels from the six sources in
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
-   parallel) and print the card.
+   parallel), print each kernel's registers, shared memory and spills
+   (``-Xptxas=-v``) and the HGMMA (``wgmma``) instructions of the two
+   tensor-core sources (``cuobjdump -sass``; none fails), and the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes: ``fd_round_wing``/``fd_round_tip`` on the
    packed wing-60k / tip-1m partition stacks, round by round to the
@@ -46,7 +48,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``torch_fullsize.json``: dense-16k (16 384² adjacency) through
    ``--kind tip --engine dense``, then ``ops.vertex_butterflies``,
    ``ops.vertex_butterflies_tiled`` and ``ops.edge_wedge_matrix`` on its
-   adjacency (``vertex_count``, ``vertex_count_tile``, ``matmul``), each
+   adjacency (``vertex_count``, ``vertex_count_tile``, ``matmul`` — the
+   last 3xTF32 on the tensor cores, its bound beside the 3xTF32 and
+   exact-f32 ones), each
    held ``torch.equal`` to its plain version (for the whole-graph counts,
    the route ``core.counting`` itself takes) and to the JAX counts;
    wing-60k through ``--kind wing`` (beindex, the default) and
@@ -55,13 +59,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    engine's own update every round.
 9. lm — the dense-family LM serving path and the ``flash_attention``
    kernel: the kernel against its plain version at ChatGLM3-6B's prefill
-   shape (f32 and bf16), D = 64 (GQA), D = 256 (MQA), a ragged non-causal
-   and an offset case, timed beside the plain version and SDPA; ChatGLM3-6B
-   at full width and depth (random weights from a ``torch.Generator``):
-   ``prefill`` at b=4, s=2048 (28 kernel launches a call), its logits and
-   ``forward``'s at 513 positions held to teacher-forced ``serve_step``;
+   shape, D = 64 (GQA), D = 256 (MQA), a ragged non-causal and an offset
+   case, each in bf16 (tensor cores) and f32 (CUDA cores), timed beside
+   the plain version and SDPA; ChatGLM3-6B at full width and depth
+   (random weights from a ``torch.Generator``), f32: ``prefill`` at b=4,
+   s=2048 (28 kernel launches a call), its logits and ``forward``'s at
+   513 positions held to teacher-forced ``serve_step``;
    ``ContinuousBatcher`` serving 8 requests through 4 slots, then again
-   with an EOS; the depth-2 model on ``numpy_params`` held to the JAX
+   with an EOS; the same model in bf16 (12.5 GB): ``prefill`` at b=4,
+   s=2048 timed twice (28 launches each), and at 256 positions its
+   logits and ``forward``'s held to a bf16 teacher-forced decode within
+   relative 3e-2; the depth-2 model on ``numpy_params`` held to the JAX
    package's logits in ``tests/goldens/torch_lm.json`` (recorded by
    ``tests/goldens/record_torch_lm.py``); and ``python -m
    repro_torch.launch.serve --arch chatglm3_6b`` in its own process.
@@ -86,6 +94,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate at the full 700 W
 
 FP32_FLOP_PER_S = 67e12      # H100 SXM FP32 CUDA-core peak (dense)
+TF32_FLOP_PER_S = 495e12     # H100 SXM TF32 tensor-core peak (dense)
 INT8_OP_PER_S = 1979e12      # H100 SXM int8 tensor-core peak (dense)
 
 KERNEL_INFO = {
@@ -163,6 +172,68 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def ptxas_resources(log_text: str) -> list:
+    """(kernel, "N registers, ... spill ...") for each entry function in an
+    ``nvcc -Xptxas=-v`` log.  A kernel that raises its register count with
+    ``setmaxnreg`` reports the count it launches with."""
+    out, fn, res = [], None, []
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn, res = line.split("'")[1], []
+        elif fn and ("spill" in line or "Used" in line):
+            res.append(line.split(":", 1)[-1].strip() if "Used" in line
+                       else line.strip())
+            if "Used" in line:
+                out.append((fn, "; ".join(res)))
+                fn = None
+    return out
+
+
+def tensor_core_sass(paths: dict) -> dict:
+    """The count of HGMMA (wgmma) instructions in the machine code of the
+    two tensor-core sources, from ``cuobjdump -sass``; fails if either
+    has none (the tensor cores would go unused).  Where the toolkit has
+    no ``cuobjdump`` the count is not measured (None)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for name in ("butterfly_count", "flash_attention"):
+        if not os.path.exists(tool):
+            counts[name] = None
+            continue
+        sass = subprocess.run([tool, "-sass", paths[name]], check=True,
+                              capture_output=True, text=True).stdout
+        counts[name] = sum(1 for line in sass.splitlines()
+                           if "HGMMA" in line)
+        if counts[name] == 0:
+            raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
+    log(f"[smoke]   HGMMA instructions (cuobjdump -sass): {counts}")
+    return counts
+
+
+def smem_bytes() -> dict:
+    """Dynamic shared memory of the two tensor-core kernels' blocks (and
+    of the CUDA-core attention kernel that f32 and D 32 take), from the
+    constants the launch functions use."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    mm, fa = _build.lib("butterfly_count"), _build.lib("flash_attention")
+    mm.matmul_smem_bytes.argtypes = []
+    mm.matmul_smem_bytes.restype = ctypes.c_longlong
+    fa.flash_attention_smem_bytes.restype = ctypes.c_longlong
+    fa.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    out = {"matmul": int(mm.matmul_smem_bytes())}
+    for d in (64, 128, 256):
+        out[f"flash_attention bf16 D={d}"] = int(
+            fa.flash_attention_smem_bytes(d, 1))
+    for d in (32, 128):
+        out[f"flash_attention f32 D={d}"] = int(
+            fa.flash_attention_smem_bytes(d, 0))
+    return out
 
 
 def require_equal(kernel: str, got, want, where: str) -> None:
@@ -562,6 +633,45 @@ def check_compute_kernel(name, kernel, plain, inputs, ops_count, nbytes,
     return row
 
 
+# (m, n, k) of the random-f32 accuracy check of matmul
+MATMUL_ERR_SHAPES = ((1000, 777, 1333), (512, 512, 16384))
+
+
+def matmul_random_error(dev) -> dict:
+    """‖C − C₆₄‖ / ‖C₆₄‖ of ``matmul`` on seeded N(0, 1) f32 inputs, each
+    layout, against an f64 product, beside the plain (full-f32)
+    version's, and the kernel's worst max |C − C₆₄| / Σ_k |a||b| in units
+    of 2⁻²³ (what ``tests/test_torch_cuda.py::tf32x3_bound`` allows is
+    6 + 108 + ⌈K/32⌉/2 of those).  The graph products are exact; this is
+    the error on general f32 data (3xTF32 drops lo·lo and rounds on the
+    tensor cores)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.butterfly_count import matmul
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for m, n, k in MATMUL_ERR_SHAPES:
+        for trans_b in (False, True):
+            a = torch.randn((m, k), generator=gen, device=dev)
+            b = torch.randn((n, k) if trans_b else (k, n), generator=gen,
+                            device=dev)
+            b_kn = b.double().T if trans_b else b.double()
+            exact = a.double() @ b_kn
+            delta = matmul(a, b, trans_b).double() - exact
+            errs = [(d.norm() / exact.norm()).item() for d in (
+                delta, ref.matmul_ref(a, b, trans_b).double() - exact)]
+            worst = (delta.abs() / (a.double().abs() @ b_kn.abs())).max()
+            out[f"{m}x{n}x{k}{' trans_b' if trans_b else ''}"] = dict(
+                kernel=errs[0], plain=errs[1],
+                kernel_max_vs_sum_abs_ulp23=worst.item() * 2.0 ** 23)
+            del delta, exact
+    log(f"[smoke]   matmul on random f32, relative error (kernel, plain "
+        f"full f32): {out}")
+    return out
+
+
 def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
     """A CLI run of the dense or beindex engine; θ, partition, ⋈init,
     ranges and the engine-independent stats held to ``wants[0]``, every
@@ -664,21 +774,44 @@ def phase_engines(engines, fullsize, dev, launches):
         lambda s, a: (ref.vertex_count_tile_ref(s, a),), (strip, A),
         2.0 * 1024 * n * k, 4 * (1024 + n) * k + 4 * 1024, INT8_OP_PER_S, 5,
         fp32_bound=True)
+    # matmul's two products, each bound by its 2n²k operations at the
+    # peak of the operands' tensor-core type: int8 for A·Aᵀ (both 0/1, as
+    # vertex_count's row counts), TF32 for W·A (W's counts overflow
+    # int8).  Beside them: the kernel's own work, three TF32 products
+    # (it skips a lo plane of zeros, so it runs one for A·Aᵀ and two for
+    # W·A), and the exact-f32 product at the FP32 CUDA-core peak.
+    flops = 2.0 * n * n * k
     row = check_compute_kernel(
         "matmul", lambda a, b: (matmul(a, b, trans_b=True),),
         lambda a, b: (ref.matmul_ref(a, b, True),), (A, A),
-        2.0 * n * n * k, 4 * (2 * n * k + n * n), FP32_FLOP_PER_S, 3,
+        flops, 4 * (2 * n * k + n * n), INT8_OP_PER_S, 3,
         library=lambda a, b: (torch.matmul(a, b.T),))
     W = matmul(A, A, trans_b=True)
     row2 = check_compute_kernel(
         "matmul", lambda w, a: (matmul(w, a),),
-        lambda w, a: (ref.matmul_ref(w, a),), (W, A), 2.0 * n * n * k,
-        4 * (n * n + 2 * n * k), FP32_FLOP_PER_S, 3,
+        lambda w, a: (ref.matmul_ref(w, a),), (W, A), flops,
+        4 * (n * n + 2 * n * k), TF32_FLOP_PER_S, 3,
         library=lambda w, a: (torch.matmul(w, a),))
     row.update(ms=(row["ms"] + row2["ms"]) / 2,
                plain_ms=(row["plain_ms"] + row2["plain_ms"]) / 2,
                library_ms=(row["library_ms"] + row2["library_ms"]) / 2,
-               calls_checked=2, library="torch.matmul, TF32 off")
+               bound_ms=(row["bound_ms"] + row2["bound_ms"]) / 2,
+               ms_by_product=dict(a_at=row["ms"], w_a=row2["ms"]),
+               bound_by_product=dict(a_at=row["bound_ms"],
+                                     w_a=row2["bound_ms"]),
+               bound_3xtf32_ms=3 * flops / TF32_FLOP_PER_S * 1e3,
+               bound_fp32_ms=flops / FP32_FLOP_PER_S * 1e3,
+               ops_per_call=flops, calls_checked=2,
+               library="torch.matmul, TF32 off")
+    row["random_f32_rel_err"] = matmul_random_error(dev)
+    log(f"[smoke]   matmul: {row['ms']:.3f} ms a product (A·Aᵀ "
+        f"{row['ms_by_product']['a_at']:.3f}, W·A "
+        f"{row['ms_by_product']['w_a']:.3f}); bound {row['bound_ms']:.2f} ms "
+        f"(int8 {row['bound_by_product']['a_at']:.2f}, TF32 "
+        f"{row['bound_by_product']['w_a']:.2f}), 3xTF32 "
+        f"{row['bound_3xtf32_ms']:.1f} ms, exact f32 at the FP32 peak "
+        f"{row['bound_fp32_ms']:.1f} ms; torch.matmul "
+        f"{row['library_ms']:.3f} ms")
     rows["matmul"] = row
     del A, W, strip, edges
     torch.cuda.empty_cache()
@@ -1021,25 +1154,33 @@ def phase_real_graphs(realdata, dev, tmp, launches) -> dict:
 BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor-core peak (dense)
 LOGIT_ATOL = 2e-3  # f32 logits of two routes: rounding only (module docstring)
 ATTN_ATOL = {"float32": 2e-3, "bfloat16": 3e-2}  # the JAX package's kernel tolerances
+# and beside it, every output row's ‖Δ‖/‖ref‖: a row's typical value
+# shrinks as it sees more keys (≈ sqrt(1/keys) on these N(0, 1) inputs),
+# so the absolute tolerance alone would pass a wrong late row.  bf16
+# rounds P and the output once each (2⁻⁹ relative): 1e-2 is five of those;
+# f32 rounds at 2⁻²⁴.
+ATTN_ROW_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+BF16_LOGIT_RTOL = 3e-2  # bf16 logits of two routes: ‖Δ‖/‖ref‖ (issue 15's gate)
 
 # (label, q shape, kv shape, causal, offset, dtype); the first is the row
-# of the kernels line: ChatGLM3-6B's prefill attention, f32
+# of the kernels line (ChatGLM3-6B's prefill attention in bf16, on the
+# tensor cores), the f32 case of the same shapes beside it
+_ATTN_SHAPES = (
+    ("chatglm3-6b prefill", (4, 32, 2048, 128), (4, 2, 2048, 128), True, None),
+    ("D=64 GQA 32/4", (4, 32, 2048, 64), (4, 4, 2048, 64), True, None),
+    ("D=256 MQA 8/1", (4, 8, 2048, 256), (4, 1, 2048, 256), True, None),
+    ("ragged non-causal S=1500", (2, 16, 1500, 128), (2, 16, 1500, 128),
+     False, None),
+    ("offset sq=128 < sk=384", (4, 32, 128, 128), (4, 2, 384, 128), True,
+     None),
+)
 LM = dict(
-    arch="chatglm3_6b", batch=4, seq=2048, stride=4,
-    kernel_cases=(
-        ("chatglm3-6b prefill f32", (4, 32, 2048, 128), (4, 2, 2048, 128),
-         True, None, "float32"),
-        ("chatglm3-6b prefill bf16", (4, 32, 2048, 128), (4, 2, 2048, 128),
-         True, None, "bfloat16"),
-        ("D=64 GQA 32/4", (4, 32, 2048, 64), (4, 4, 2048, 64), True, None,
-         "float32"),
-        ("D=256 MQA 8/1", (4, 8, 2048, 256), (4, 1, 2048, 256), True, None,
-         "float32"),
-        ("ragged non-causal S=1500", (2, 16, 1500, 128), (2, 16, 1500, 128),
-         False, None, "float32"),
-        ("offset sq=128 < sk=384", (4, 32, 128, 128), (4, 2, 384, 128), True,
-         None, "float32"),
-    ),
+    arch="chatglm3_6b", batch=4, seq=2048, stride=4, bf16_check_seq=256,
+    kernel_cases=tuple((f"{label} {tag}", qs, ks, causal, offset, dt)
+                       for label, qs, ks, causal, offset in _ATTN_SHAPES
+                       for tag, dt in (("bf16", "bfloat16"),
+                                       ("f32", "float32"))),
     serve=dict(slots=4, requests=8, prompt=(16, 128), max_new=32, max_seq=256,
                eos_request=1, eos_index=7),
     cli=["--arch", "chatglm3_6b", "--batch", "4", "--prompt-len", "16",
@@ -1104,11 +1245,16 @@ def check_attention(cases, dev, reps):
         got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
         want = ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
         rows = defined_rows(q, k, causal, offset)
-        err = (got[:, :, rows].float() - want[:, :, rows].float()).abs().max().item()
-        if not err <= ATTN_ATOL[dt]:
-            raise AssertionError(f"flash_attention {label}: max abs err {err} "
-                                 f"> {ATTN_ATOL[dt]} against the plain version")
-        del got, want
+        delta = got[:, :, rows].float() - want[:, :, rows].float()
+        err = delta.abs().max().item()
+        row_err = (delta.norm(dim=-1)
+                   / want[:, :, rows].float().norm(dim=-1)).max().item()
+        if not (err <= ATTN_ATOL[dt] and row_err <= ATTN_ROW_RTOL[dt]):
+            raise AssertionError(
+                f"flash_attention {label}: max abs err {err} (limit "
+                f"{ATTN_ATOL[dt]}), worst row's relative err {row_err} "
+                f"(limit {ATTN_ROW_RTOL[dt]}) against the plain version")
+        del got, want, delta
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                  offset=offset), reps)
         plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
@@ -1123,11 +1269,12 @@ def check_attention(cases, dev, reps):
         mem = nbytes / HBM_BYTES_PER_S * 1e3
         row = dict(case=label, shape_q=list(q.shape), shape_kv=list(k.shape),
                    dtype=dt, causal=causal, offset=offset, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   row_rel_err=row_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_fp32_ms=max(fp32, mem), bound_bf16_ms=max(bf16, mem),
                    ops_per_call=ops_count, bytes_per_call=nbytes)
         log(f"[smoke]   flash_attention {label}: max abs err {err:.2e} (tol "
-            f"{ATTN_ATOL[dt]}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"{ATTN_ATOL[dt]}), worst row {row_err:.2e} relative (tol "
+            f"{ATTN_ROW_RTOL[dt]}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"SDPA {library_ms} ms; {ops_count / 1e9:.1f} G ops, "
             f"{nbytes / 1e6:.1f} MB -> bound {row['bound_fp32_ms']:.3f} ms "
             f"FP32, {row['bound_bf16_ms']:.3f} ms bf16 tensor cores")
@@ -1136,7 +1283,18 @@ def check_attention(cases, dev, reps):
     first = out[0]
     bound = first["bound_fp32_ms" if first["dtype"] == "float32"
                   else "bound_bf16_ms"]
-    return dict(ms=first["ms"], plain_ms=first["plain_ms"],
+    # the first case's shapes in each dtype (bf16 on the tensor cores, f32
+    # on the CUDA cores), each with the bound of the units it runs on
+    by_dtype = {r["dtype"]: dict(
+        ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+        max_abs_err=r["max_abs_err"], row_rel_err=r["row_rel_err"],
+        bound_ms=r["bound_fp32_ms" if r["dtype"] == "float32"
+                   else "bound_bf16_ms"])
+        for r in out if (r["shape_q"], r["shape_kv"], r["causal"],
+                         r["offset"]) == (first["shape_q"],
+                                          first["shape_kv"],
+                                          first["causal"], first["offset"])}
+    return dict(ms=first["ms"], plain_ms=first["plain_ms"], by_dtype=by_dtype,
                 library_ms=first["library_ms"], bound_ms=bound,
                 bound_by="operations", max_abs_err=max(r["max_abs_err"]
                                                       for r in out),
@@ -1179,15 +1337,16 @@ def hold_golden(label, logits, want, ids) -> float:
     return err
 
 
-def teacher_forced(model, tokens, positions, dev):
+def teacher_forced(model, tokens, positions, dev, dtype=None):
     """Logits [b, len(positions), V] of ``serve_step`` fed ``tokens`` one
-    position at a time (no attention kernel on this route)."""
+    position at a time (no attention kernel on this route), with a cache
+    of ``dtype`` (default f32)."""
     import torch
 
     from repro_torch.models import init_cache
 
     b, s = tokens.shape
-    cache = init_cache(model.cfg, b, s, dev, torch.float32)
+    cache = init_cache(model.cfg, b, s, dev, dtype or torch.float32)
     want = set(positions)
     out = []
     with torch.no_grad():
@@ -1334,6 +1493,82 @@ def serve_requests(cfg, params, spec, dev, vocab):
                 tokens_per_s=tokens / dt, eos_steps=steps2, eos_seconds=dt2)
 
 
+def bf16_model(cfg, lm, dev, launches) -> dict:
+    """``cfg`` at full width in bf16 (random weights from a seeded
+    ``torch.Generator``): prefill at (batch, seq) twice, timed, with one
+    ``flash_attention`` launch a layer; then at ``bf16_check_seq``
+    positions the forward's logits (every position) and the prefill's
+    (the last) held to a bf16 teacher-forced decode of the same tokens
+    (plain decode attention, bf16 cache) within ``BF16_LOGIT_RTOL``,
+    relative in the 2-norm."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import DenseLM, init_params
+
+    on_card = torch.device(dev).type == "cuda"
+    want = {k: (cfg.n_layers * on_card if k == "flash_attention" else 0)
+            for k in ops.KERNELS}
+
+    def counted(label, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        sync(dev)
+        counts = ops.launch_counts()
+        expect(label, "kernel launches", counts, want)
+        launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                       + counts["flash_attention"])
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    model = DenseLM(cfg, init_params(cfg, gen, dev, torch.bfloat16))
+    sync(dev)
+    info = dict(init_s=time.perf_counter() - t0, weights_gb=sum(
+        p.numel() * p.element_size() for p in model.parameters()) / 1e9)
+    b, s = lm["batch"], lm["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    prefill_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            counted("bf16 prefill", lambda: model.prefill(tokens))
+            prefill_s.append(time.perf_counter() - t0)
+        n = min(lm["bf16_check_seq"], s)
+        ids = tokens[:, :n].contiguous()
+        fwd = counted("bf16 forward", lambda: model(ids)).float()
+        last = counted("bf16 prefill (check)",
+                       lambda: model.prefill(ids)).float()
+    t0 = time.perf_counter()
+    dec = teacher_forced(model, ids, list(range(n)), dev,
+                         torch.bfloat16).float()
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+
+    def rel(label, got, ref):
+        err = ((got - ref).norm() / ref.norm()).item()
+        if not err <= BF16_LOGIT_RTOL:
+            raise AssertionError(f"{label}: relative logit error {err} > "
+                                 f"{BF16_LOGIT_RTOL}")
+        return err
+
+    info.update(
+        prefill_s=prefill_s, prefill_tok_s=[b * s / t for t in prefill_s],
+        check_positions=n, decode_s=decode_s,
+        forward_vs_decode_rel=rel("bf16 forward vs teacher-forced decode",
+                                  fwd, dec),
+        prefill_vs_decode_rel=rel("bf16 prefill vs teacher-forced decode",
+                                  last, dec[:, -1]))
+    log(f"[smoke]   {cfg.name} bf16 ({info['weights_gb']:.2f} GB): prefill "
+        f"b={b} s={s} in {prefill_s} s ({info['prefill_tok_s']} tok/s), "
+        f"{cfg.n_layers} flash_attention launches each; at {n} positions "
+        f"forward / prefill vs bf16 teacher-forced decode ({decode_s:.1f} s) "
+        f"relative error {info['forward_vs_decode_rel']:.3e} / "
+        f"{info['prefill_vs_decode_rel']:.3e} (rtol {BF16_LOGIT_RTOL})")
+    del model
+    return info
+
+
 def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
              reps=10) -> tuple:
     """Phase 9; returns (the flash_attention row, the LM numbers)."""
@@ -1400,6 +1635,10 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     info["serve"] = serve_requests(cfg, params, lm["serve"], dev, cfg.vocab)
     info["decode_profile"] = profile_decode(model, tokens, s, dev)
     del model, params
+    torch.cuda.empty_cache()
+
+    # ---- the same architecture in bf16: prefill on the tensor-core kernel
+    info["bf16"] = bf16_model(cfg, lm, dev, launches)
     torch.cuda.empty_cache()
 
     # ---- the recorded depth-2 golden
@@ -1477,9 +1716,11 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
         for name in _build.SOURCES:
             path = os.path.join(_build.BUILD_DIR, f"{name}.log")
             if os.path.exists(path):
-                for line in open(path):
-                    if "registers" in line or "spill" in line:
-                        log(f"[smoke]   ptxas {name}: {line.strip()}")
+                with open(path) as f:
+                    for fn, res in ptxas_resources(f.read()):
+                        log(f"[smoke]   ptxas {name}: {fn}: {res}")
+        hgmma = tensor_core_sass(_build.build_all())
+        log(f"[smoke]   dynamic shared memory a block: {smem_bytes()}")
         log(f"[smoke]   torch {torch.__version__} cuda {torch.version.cuda} "
             f"on {torch.cuda.get_device_name(0)} ({smi})")
 
@@ -1549,9 +1790,12 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
             library_ms=r.get("library_ms"),
             **{key: r[key] for key in ("bytes_per_call", "ops_per_call",
                                        "bound_fp32_ms", "bound_bf16_ms",
-                                       "library")
+                                       "by_dtype", "ms_by_product",
+                                       "bound_by_product", "bound_3xtf32_ms",
+                                       "random_f32_rel_err", "library")
                if key in r}))
-    log(json.dumps(dict(phase_seconds=Phase.seconds, fd_driver_seconds=fd_times,
+    log(json.dumps(dict(phase_seconds=Phase.seconds, hgmma=hgmma,
+                        fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
                         engine_seconds=engine_seconds, lm=lm_info)))
     log(json.dumps({"kernels": kernels}))

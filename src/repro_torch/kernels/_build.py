@@ -56,7 +56,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "common.cuh"):
+    for fn in (f"{name}.cu", "common.cuh", "hopper.cuh"):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

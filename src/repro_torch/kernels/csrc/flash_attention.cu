@@ -1,51 +1,74 @@
-// Online-softmax (flash) attention for Hopper (sm_90a).
+// Online-softmax (flash) attention for Hopper (sm_90a): two kernels,
+// one launch function.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas (_flash_kernel), and with it the blockwise
 // attention of src/repro/models/layers.py::blockwise_attention that the
-// Pallas kernel stands in for on the accelerator.  It computes the plain
-// version kernels/ref.py::flash_attention_ref:
+// Pallas kernel stands in for on the accelerator.  Both compute the
+// plain version kernels/ref.py::flash_attention_ref:
 //
 //   out[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
 //
 // over the keys j < sk visible to query i (all of them, or with `causal`
-// those with j <= i + offset), f32 throughout, the output in the input's
-// type.  G = H / KVH query heads share one key/value head (GQA, MQA); the
-// mapping is done here, never by repeating k and v in memory.  A query
-// row that sees no key gives 0.
+// those with j <= i + offset), the output in the input's type.  G = H /
+// KVH query heads share one key/value head (GQA, MQA); the mapping is
+// done here, never by repeating k and v in memory.  A query row that
+// sees no key gives 0.  A ragged tail (sq or sk not a tile multiple) is
+// masked in the kernel, with no padded copy, and heavy causal tiles (the
+// last query tiles) are launched first.
 //
 // What bounds it on this card: operations.  A causal ChatGLM3-6B prefill
-// layer (b 4, 32 query heads over 2 KV heads, S 2048, D 128) needs about
-// 2 b H S^2 D = 1.37e11 multiply-adds counted as two operations each,
-// 2.05 ms at the 67 TFLOP/s FP32 CUDA-core peak this design runs at
-// (0.14 ms at the bf16 tensor-core peak), against 285 MB of q, k, v and
-// output: 0.085 ms at 3.35 TB/s.
+// layer (b 4, 32 query heads over 2 KV heads, S 2048, D 128) needs
+// 1.37e11 operations (two multiply-adds per visible query-key pair and
+// head dim, each counted as two): 0.139 ms at the 989 TFLOP/s bf16
+// tensor-core peak, 2.05 ms at the 67 TFLOP/s FP32 CUDA-core peak,
+// against 285 MB (f32) of q, k, v and output, 0.085 ms at 3.35 TB/s.
 //
-// What the design does about it.  The TPU kernel carries the running
-// max, sum and accumulator in VMEM scratch across its sequential
-// key-block grid axis.  Blocks run in parallel here, so one block owns a
-// 64-row query tile of one (batch, head) and walks the key/value tiles
-// in a loop, stopping at the causal diagonal: only the tiles a row can
-// see are read.  The tile of q (pre-scaled) stays in shared memory; each
-// 64-row key tile and then value tile pass through one shared buffer.
-// 256 threads form a 16 x 16 grid: a thread owns four query rows and
-// four interleaved key columns of the score tile (float4 shared-memory
-// reads, conflict-free with a row pitch of D + 4), and the same four rows
-// times D / 16 columns of the accumulator, so the online-softmax rescale
-// of its rows needs no exchange beyond half-warp shuffles.  Everything is
-// f32 FMA (bf16 inputs are widened on load with __bfloat162float); the
-// causal mask is taken against the logical offset the caller passes, and
-// a ragged tail (sq or sk not a tile multiple) is masked here, with no
-// padded copy.  Masked scores are -inf and a row whose maximum is still
-// -inf contributes nothing, so fully masked rows stay 0 instead of
-// averaging every key.  Heavy causal tiles (the last query tiles) are
-// launched first.  Tensor cores (wgmma, TMA) are a later redesign.
+// Which kernel runs (an explicit split, not a fallback: both are
+// hand-written and a CUDA tensor launches one of them or an error):
+//
+// * bf16 with D = 64, 128 or 256 (TinyLlama, ChatGLM3 / CodeQwen, Gemma):
+//   tc::flash_tc_kernel, on the tensor cores.  A block owns one
+//   (batch, head) and 128 query rows: two consumer warpgroups of 64 rows
+//   and a producer warpgroup, one thread of which issues every copy (it
+//   hands most of its registers to the consumers: setmaxnreg).  It loads
+//   the q tile once and then key and value tiles (128 keys; 64 at D =
+//   256) through TMA into a two-stage ring, from 4-D tensor maps over
+//   the strided [B, heads, S, D] views (128-byte swizzle, one box per
+//   64-column chunk of D, zero past sq and sk); keys and values have
+//   their own full / empty mbarriers, and values trail keys by a tile.
+//   A consumer computes S = q k^T with wgmma (bf16 -> f32, both operands
+//   K-major in shared memory), the online softmax on the accumulator
+//   registers (row max and sum across the four threads of a row by
+//   shuffles; exp2 with the scale folded in), rounds P to bf16 in
+//   registers — as the TPU kernel does (p.astype(v.dtype)) — and feeds
+//   it as wgmma's A operand to O += P v, with v an MN-major B operand.
+//   The two consumers take turns at the tensor cores: in its turn one
+//   issues S of its next tile and P v of this one, then runs that next
+//   tile's softmax on the CUDA cores while the tensor cores work through
+//   both consumers' products.  Only key tiles up to the causal diagonal
+//   are loaded and only tiles that cross it (or the ragged sk edge) are
+//   masked.  Accumulation is f32; the output is bf16.
+// * f32 inputs, and D = 32 (the reduced presets' head dim): simt::
+//   flash_attention_kernel, f32 FMA on the CUDA cores.  A block owns a
+//   64-row query tile and walks the key/value tiles through one shared
+//   buffer; 256 threads form a 16 x 16 grid, a thread owning four query
+//   rows and four interleaved key columns of the score tile (float4
+//   shared-memory reads, conflict-free with a row pitch of D + 4) and
+//   the same four rows times D / 16 columns of the accumulator.  bf16
+//   inputs are widened on load.  Its f32 case is a 3xTF32 tensor-core
+//   candidate (ROADMAP).
+//
+// In both, masked scores are -inf and a row whose maximum is still -inf
+// contributes nothing, so fully masked rows stay 0 instead of averaging
+// every key.
+#include "hopper.cuh"
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-namespace {
+namespace simt {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
@@ -289,18 +312,444 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const Args& a, cudaStream_t stream) {
+}  // namespace simt
+
+namespace tc {
+
+constexpr int kWG = 2;                     // consumer warpgroups, 64 query rows each
+constexpr int kBQ = 64 * kWG;              // query rows per block
+constexpr int kThreads = 128 * (kWG + 1);  // + the producer warpgroup
+constexpr int kStages = 2;                 // key / value ring depth
+constexpr int kWarps = 4 * kWG;            // arrivals that free a ring slot
+constexpr float kLog2e = 1.4426950408889634f;
+// registers a thread: 168 at launch (65 536 / 384); the producer gives
+// 128 of them back, each consumer takes 64 more
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int D>
+struct Shape {
+  // keys per tile: 128, or 64 at D = 256, where the 128 accumulator
+  // registers of O leave room for no more scores
+  static constexpr int BKV = D == 256 ? 64 : 128;
+  static constexpr int C = D / 64;                         // 128-byte column chunks
+  static constexpr uint32_t Q_CHUNK = kBQ * 128;           // bytes of one q chunk
+  static constexpr uint32_t KV_CHUNK = BKV * 128;          // bytes of one k or v chunk
+  static constexpr uint32_t Q_BYTES = C * Q_CHUNK;
+  static constexpr uint32_t KV_BYTES = C * KV_CHUNK;       // one k or v tile
+  static constexpr uint32_t BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * kStages);
+};
+
+struct Args {
+  void* out;            // contiguous [B, H, sq, D] bf16
+  int H, G, sq, sk;     // G query heads per key/value head
+  int causal, offset, n_qt, bh;
+  float scale_log2;     // scale * log2(e)
+};
+
+// The block's shared memory: q, the key and value rings, and the ring's
+// barriers (full: the tile has landed; empty: every consumer warp is
+// done with it; keys and values are freed separately).
+struct Smem {
+  uint8_t* q;
+  uint8_t* k;
+  uint8_t* v;
+  uint64_t* q_full;
+  uint64_t* k_full;
+  uint64_t* v_full;
+  uint64_t* k_empty;
+  uint64_t* v_empty;
+};
+
+// O[64 x D] += P v, P from registers.
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[4], uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_bf16_rs_n64(o, p, b, 1);
+  } else if constexpr (D == 128) {
+    wgmma_bf16_rs_n128(o, p, b, 1);
+  } else {
+    wgmma_bf16_rs_n256(o, p, b, 1);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Key tiles of BKV keys that query rows [r0, r1) need (0 if none).
+template <int BKV>
+__device__ __forceinline__ int key_tiles(const Args& a, int r0, int r1) {
+  if (r1 <= r0) return 0;
+  int n = (a.sk + BKV - 1) / BKV;
+  if (a.causal) {
+    const int last = r1 - 1 + a.offset;  // last key the last row sees
+    n = last < 0 ? 0 : min(n, last / BKV + 1);
+  }
+  return n;
+}
+
+// S[64 x BKV] = q k^T of one warpgroup, bf16 -> f32.
+template <int BKV>
+__device__ __forceinline__ void qk(float (&s)[BKV / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (BKV == 64) {
+    wgmma_bf16_n64(s, a, b, scale_d);
+  } else {
+    wgmma_bf16_n128(s, a, b, scale_d);
+  }
+}
+
+// The two consumers take turns at the tensor cores (named barriers 1
+// and 2, 256 threads each): in its turn a warpgroup issues the scores
+// of its next tile and P v of this one, then hands over and runs the
+// softmax of the next tile while the tensor cores work through both
+// warpgroups' products.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(128 * kWG) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(128 * kWG) : "memory");
+}
+
+// One consumer warpgroup: query rows [r0, r0 + 64) against key tiles
+// [0, n) of the ring, where the block's producer loads n_kt >= n tiles.
+// No wgmma sits under a branch that is not warp-uniform, no barrier wait
+// spins while one is in flight, and no register a wgmma in flight
+// accumulates in is touched: ptxas would otherwise serialise every
+// wgmma of the kernel.  So the scores live in a fresh buffer each turn.
+template <int D>
+struct Consumer {
+  using S = Shape<D>;
+  static constexpr int BKV = S::BKV;
+  const Args& a;
+  const Smem& sm;
+  uint32_t q_addr;
+  int r0, n, lane, col;
+  int row[2], last[2];  // this thread's rows, and the last key each sees
+  float o[D / 2];
+  float m[2], l[2], alpha[2];
+  uint32_t p[BKV / 16][4];
+
+  // one arrival a warp frees a ring slot
+  __device__ __forceinline__ void free_k(int kt) {
+    mbar_arrive_if(&sm.k_empty[kt % kStages], lane == 0);
+  }
+  __device__ __forceinline__ void free_v(int kt) {
+    mbar_arrive_if(&sm.v_empty[kt % kStages], lane == 0);
+  }
+
+  // s = q k^T of key tile kt, whose keys have landed: issued, committed
+  __device__ __forceinline__ void issue_qk(float (&s)[BKV / 2], int kt) {
+    const uint32_t k_addr = smem_u32(sm.k + (kt % kStages) * S::KV_BYTES);
+    fence_regs(o);  // every write of o lands before the fence
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 values of a 128-byte row
+      qk<BKV>(s, desc_sw128(q_addr + (kk / 4) * S::Q_CHUNK + off, 16, 1024),
+              desc_sw128(k_addr + (kk / 4) * S::KV_CHUNK + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  }
+
+  // o += P v of value tile kt, whose values have landed: issued, committed
+  __device__ __forceinline__ void issue_pv(int kt) {
+    const uint32_t v_addr = smem_u32(sm.v + (kt % kStages) * S::KV_BYTES);
+    fence_regs(o);  // the rescale and P land before the fence
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int tt = 0; tt < BKV / 16; ++tt)
+      pv<D>(o, p[tt], desc_sw128(v_addr + tt * 16 * 128, S::KV_CHUNK, 1024));
+    wgmma_commit();
+  }
+
+  // The online softmax of tile kt's scores, in place (s becomes the
+  // probabilities), with m, l and alpha; o and p, which a P v in flight
+  // may hold, are left alone.  s[4j + 2r + c] is row row[r], key
+  // kt * BKV + 8j + col + c.  Only tiles that cross the diagonal or the
+  // ragged edge are masked (a warp-uniform branch).
+  __device__ __forceinline__ void softmax(float (&s)[BKV / 2], int kt) {
+    const int k0 = kt * BKV;
+    const bool masked = (a.causal && k0 + BKV - 1 > r0 + a.offset) || k0 + BKV > a.sk;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] *= a.scale_log2;
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i)
+        if (k0 + col + 8 * (i / 4) + i % 2 > last[(i / 2) % 2]) s[i] = -CUDART_INF_F;
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const bool none = m_new == -CUDART_INF_F;  // nothing seen yet
+      alpha[r] = none ? 1.0f : exp2f(m[r] - m_new);
+      base[r] = none ? 0.0f : m_new;
+      m[r] = m_new;
+    }
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int r = (i / 2) % 2;  // rows alternate in pairs
+      s[i] = exp2f(s[i] - base[r]);
+      sum[r] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];  // per-thread partial
+  }
+
+  // P (bf16) and the rescaled o for the tile softmax() prepared, once the
+  // previous P v has retired.  The accumulator layout of keys [16 tt,
+  // 16 tt + 16) is the register layout of wgmma's A operand for one k16
+  // step, so P needs no exchange between threads.
+  __device__ __forceinline__ void prepare_pv(const float (&s)[BKV / 2]) {
+#pragma unroll
+    for (int tt = 0; tt < BKV / 16; ++tt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) p[tt][q] = pack_bf16(s[8 * tt + 2 * q], s[8 * tt + 2 * q + 1]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+
+  // The first tile's scores and softmax, before the turns begin.
+  __device__ __forceinline__ void first() {
+    float s[BKV / 2];
+    mbar_wait(&sm.k_full[0], 0);
+    issue_qk(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    free_k(0);
+    softmax(s, 0);
+    prepare_pv(s);
+  }
+
+  // This warpgroup's turn for key tile kt (kMore: not its last tile):
+  // issue the next tile's scores and P v of this one, hand the turn on,
+  // then the next tile's softmax while they run.
+  template <bool kMore>
+  __device__ __forceinline__ void turn(int kt, int wg) {
+    float s[BKV / 2];
+    mbar_wait(&sm.v_full[kt % kStages], (kt / kStages) & 1);
+    if constexpr (kMore) mbar_wait(&sm.k_full[(kt + 1) % kStages], ((kt + 1) / kStages) & 1);
+    turn_wait(wg);
+    if constexpr (kMore) issue_qk(s, kt + 1);
+    issue_pv(kt);
+    turn_pass(wg);
+    if constexpr (kMore) {
+      wgmma_wait<1>();  // the scores; P v may still run
+      fence_regs(s);
+      free_k(kt + 1);
+      softmax(s, kt + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    free_v(kt);
+    if constexpr (kMore) prepare_pv(s);
+  }
+
+  // A turn past this warpgroup's last visible key: the ring slot is
+  // taken and freed all the same, so the turns and the ring's phases
+  // stay in step with the other warpgroup.
+  __device__ __forceinline__ void idle_turn(int kt, int wg) {
+    turn_wait(wg);
+    mbar_wait(&sm.k_full[kt % kStages], (kt / kStages) & 1);
+    mbar_wait(&sm.v_full[kt % kStages], (kt / kStages) & 1);
+    free_k(kt);
+    free_v(kt);
+    turn_pass(wg);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                const __grid_constant__ CUtensorMap vm, Args a) {
+  using S = Shape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  Smem sm;
+  sm.q = smem;
+  sm.k = smem + S::Q_BYTES;                 // kStages tiles
+  sm.v = sm.k + kStages * S::KV_BYTES;      // kStages tiles
+  sm.q_full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  sm.k_full = sm.q_full + 1;
+  sm.v_full = sm.k_full + kStages;
+  sm.k_empty = sm.v_full + kStages;
+  sm.v_empty = sm.k_empty + kStages;
+
+  // heavy (late) causal query tiles first, every (batch, head) in turn
+  const int qt = a.n_qt - 1 - (int)(blockIdx.x / a.bh);
+  const int bh = (int)(blockIdx.x % a.bh);
+  const int b = bh / a.H, h = bh % a.H, kvh = h / a.G;
+  const int q0 = qt * kBQ;
+  constexpr int BKV = S::BKV;
+  const int n_kt = key_tiles<BKV>(a, q0, min(q0 + kBQ, a.sq));
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], kWarps);
+      mbar_init(&sm.v_empty[s], kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // broadcast from lane 0, so that ptxas knows the warpgroup index (and
+  // the trip counts derived from it) to be warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kWG) {
+    // ---- producer: one thread issues every copy.  Values trail keys by
+    // a tile (k0, k1, v0, k2, v1, ...): a consumer frees a key tile as
+    // soon as its scores are in, its value tile one tile later.
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kWG * 128 && n_kt > 0) {
+      tma_prefetch(&qm);
+      tma_prefetch(&km);
+      tma_prefetch(&vm);
+      mbar_expect_tx(sm.q_full, S::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < S::C; ++c)
+        tma_load_4d(sm.q + c * S::Q_CHUNK, &qm, sm.q_full, 64 * c, q0, h, b);
+      for (int kt = 0; kt <= n_kt; ++kt) {
+        if (kt < n_kt) {
+          const int s = kt % kStages;
+          mbar_wait(&sm.k_empty[s], ((kt / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.k_full[s], S::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < S::C; ++c)
+            tma_load_4d(sm.k + s * S::KV_BYTES + c * S::KV_CHUNK, &km, &sm.k_full[s], 64 * c,
+                        kt * BKV, kvh, b);
+        }
+        if (kt > 0) {
+          const int vt = kt - 1, s = vt % kStages;
+          mbar_wait(&sm.v_empty[s], ((vt / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.v_full[s], S::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < S::C; ++c)
+            tma_load_4d(sm.v + s * S::KV_BYTES + c * S::KV_CHUNK, &vm, &sm.v_full[s], 64 * c,
+                        vt * BKV, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64)
+  setmaxnreg_inc<kConsumerRegs>();
+  const int t = threadIdx.x % 128, warp = t / 32;
+  Consumer<D> c{a, sm};
+  c.lane = t % 32;
+  c.r0 = q0 + 64 * wg;
+  c.n = key_tiles<BKV>(a, c.r0, min(c.r0 + 64, a.sq));
+  c.row[0] = c.r0 + 16 * warp + c.lane / 4;
+  c.row[1] = c.row[0] + 8;
+  for (int r = 0; r < 2; ++r)
+    c.last[r] = a.causal ? min(a.sk - 1, c.row[r] + a.offset) : a.sk - 1;
+  c.col = 2 * (c.lane % 4);  // + 8 j + e within a tile
+  c.q_addr = smem_u32(sm.q) + 64 * 128 * wg;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) c.o[i] = 0.0f;
+  c.m[0] = c.m[1] = -CUDART_INF_F;
+  c.l[0] = c.l[1] = 0.0f;
+
+  if (n_kt > 0) {
+    mbar_wait(sm.q_full, 0);
+    if (wg == 1) turn_pass(wg);  // the first turn is warpgroup 0's
+  }
+  if (c.n > 0) c.first();
+  // one turn per key tile of the block, warpgroup 0 first; each turn
+  // starts and ends with no wgmma in flight
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < c.n) {
+      c.template turn<true>(kt, wg);
+    } else if (kt + 1 == c.n) {
+      c.template turn<false>(kt, wg);
+    } else {
+      c.idle_turn(kt, wg);
+    }
+  }
+  if (n_kt > 0 && wg == 0) turn_wait(wg);  // warpgroup 1's last hand-over
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float tot = quad_sum(c.l[r]);  // every lane shuffles
+    if (c.row[r] >= a.sq) continue;
+    const float inv = tot > 0.0f ? 1.0f / tot : 0.0f;
+    uint32_t* dst =
+        reinterpret_cast<uint32_t*>(out + ((int64_t)bh * a.sq + c.row[r]) * D + c.col);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      dst[4 * j] = pack_bf16(c.o[4 * j + 2 * r] * inv, c.o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int B, int KVH,
+                   const long long (&qs)[3], const long long (&ks)[3], const long long (&vs)[3],
+                   cudaStream_t stream) {
+  using S = Shape<D>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const long long* strides[3] = {qs, ks, vs};
+  for (int i = 0; i < 3; ++i) {
+    // dims innermost first: D, rows, heads, batch; strides in bytes
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)(i == 0 ? a.sq : a.sk),
+                              (uint64_t)(i == 0 ? a.H : KVH), (uint64_t)B};
+    const uint64_t bytes[3] = {(uint64_t)strides[i][2] * 2, (uint64_t)strides[i][1] * 2,
+                               (uint64_t)strides[i][0] * 2};
+    const uint32_t box[4] = {64, (uint32_t)(i == 0 ? kBQ : S::BKV), 1, 1};
+    const cudaError_t err =
+        encode_sw128(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptrs[i], dims, bytes, box);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)a.n_qt * (unsigned)a.bh;
+  flash_tc_kernel<D><<<blocks, kThreads, S::SMEM, stream>>>(maps[0], maps[1], maps[2], a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v, const Args& a, int B,
+                     int KVH, const long long (&qs)[3], const long long (&ks)[3],
+                     const long long (&vs)[3], cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
+    case 64: return launch<64>(q, k, v, a, B, KVH, qs, ks, vs, stream);
+    case 128: return launch<128>(q, k, v, a, B, KVH, qs, ks, vs, stream);
+    case 256: return launch<256>(q, k, v, a, B, KVH, qs, ks, vs, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+}  // namespace tc
 
 // q [B, H, sq, D], k and v [B, KVH, sk, D], each with unit stride in D
 // and the given element strides for batch, head and row, 16-byte aligned
@@ -315,15 +764,46 @@ extern "C" int flash_attention_launch(
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || sq <= 0 || sk <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && D != 32) {
+    tc::Args a;
+    a.out = out;
+    a.H = H; a.G = H / KVH; a.sq = sq; a.sk = sk;
+    a.causal = causal; a.offset = offset;
+    a.n_qt = (sq + tc::kBQ - 1) / tc::kBQ;
+    a.bh = B * H;
+    a.scale_log2 = scale * tc::kLog2e;
+    const long long qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss},
+                    vs[3] = {v_sb, v_sh, v_ss};
+    return (int)tc::dispatch(D, q, k, v, a, B, KVH, qs, ks, vs, s);
+  }
+  simt::Args a;
   a.q = q; a.k = k; a.v = v; a.out = out;
   a.H = H; a.G = H / KVH; a.sq = sq; a.sk = sk;
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
   a.scale = scale; a.causal = causal; a.offset = offset;
-  a.n_qt = (sq + kBQ - 1) / kBQ;
+  a.n_qt = (sq + simt::kBQ - 1) / simt::kBQ;
   a.bh = B * H;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? dispatch<__nv_bfloat16>(D, a, s) : dispatch<float>(D, a, s));
+  if (bf16) return (int)simt::launch<__nv_bfloat16, 32>(a, s);
+  switch (D) {
+    case 32: return (int)simt::launch<float, 32>(a, s);
+    case 64: return (int)simt::launch<float, 64>(a, s);
+    case 128: return (int)simt::launch<float, 128>(a, s);
+    case 256: return (int)simt::launch<float, 256>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory (bytes) of one block of the kernel that a
+// (head dim, bf16) call launches; 0 for an unsupported head dim.
+extern "C" long long flash_attention_smem_bytes(int D, int bf16) {
+  switch (D) {
+    case 32: return (long long)simt::smem_bytes<32>();
+    case 64: return (long long)(bf16 ? tc::Shape<64>::SMEM : simt::smem_bytes<64>());
+    case 128: return (long long)(bf16 ? tc::Shape<128>::SMEM : simt::smem_bytes<128>());
+    case 256: return (long long)(bf16 ? tc::Shape<256>::SMEM : simt::smem_bytes<256>());
+    default: return 0;
+  }
 }

@@ -2,14 +2,17 @@
 
 ``flash_attention``: softmax attention of q [B, H, Sq, D] over k, v
 [B, KVH, Sk, D] (H a multiple of KVH: query head h reads key/value head
-h // (H / KVH)), f32 arithmetic, output in q's dtype.  With ``causal``,
-key j is visible to query i iff j <= i + ``offset``; a row that sees no
-key gives 0.  q, k and v may be strided views (the model's transposed
-heads); only their last dimension must be contiguous.
+h // (H / KVH)), f32 accumulation, output in q's dtype.  With
+``causal``, key j is visible to query i iff j <= i + ``offset``; a row
+that sees no key gives 0.  q, k and v may be strided views (the model's
+transposed heads); only their last dimension must be contiguous.
 
-A CUDA tensor launches the kernel, a CPU tensor runs the plain version
-(``ref.flash_attention_ref``).  The kernel has no backward: a CUDA input
-that requires grad is refused.
+A CUDA tensor launches a kernel, a CPU tensor runs the plain version
+(``ref.flash_attention_ref``).  bf16 inputs with D 64, 128 or 256 take
+the tensor-core kernel (``wgmma`` fed by TMA; P is rounded to bf16
+before P·V, as the TPU kernel rounds it); f32 inputs and D 32 (the
+reduced presets' head dim) take the CUDA-core kernel (f32 throughout).  The kernels have no backward: a CUDA
+input that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ def _lib():
 
 
 def _rows(name, t, dtype, device):
-    """``t`` as the kernel reads it: on ``device``, of ``dtype``, unit
-    stride in D and 16-byte aligned rows (a copy only where not)."""
+    """``t`` as the kernels read it: on ``device``, of ``dtype``, unit
+    stride in D and 16-byte aligned rows and strides (TMA's rule too; a
+    copy only where not)."""
     if t.device != device:
         raise ValueError(f"flash_attention: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -8,6 +8,7 @@ port's own packers on small graphs.  Run on a machine with a card::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import json
+import math
 import os
 
 import numpy as np
@@ -235,6 +236,21 @@ def _launched(name, fn):
     return out, ops.launch_counts()[name] - before
 
 
+def tf32x3_bound(a, b):
+    """Elementwise bound on |C − a·b| of the 3xTF32 ``matmul`` (``b`` is
+    [K, N]): γ Σ_k |a_ik||b_kj|, γ = (3·2⁻²² + 108·2⁻²³ + ⌈K/32⌉·2⁻²⁴)
+    (1 + 2⁻⁸).  The split drops lo·lo and rounds each lo to TF32, 2⁻²²
+    each.  A 32-deep k tile runs twelve k8 wgmma steps, each rounded
+    toward zero; how the tensor cores align a step's eight products is
+    not documented, so each step may lose 2⁻²³ of each of its nine
+    addends.  Each tile sum joins the running sum by one rounded f32 add
+    (2⁻²⁴).  The last factor covers second-order terms."""
+    k = a.shape[1]
+    gamma = ((3 * 2.0 ** -22 + 108 * 2.0 ** -23 + math.ceil(k / 32) * 2.0 ** -24)
+             * (1 + 2.0 ** -8))
+    return gamma * (a.double().abs() @ b.double().abs())
+
+
 @pytest.mark.parametrize("n_u,n_v,m", [(40, 30, 200), (130, 70, 700),
                                        (257, 129, 1500), (300, 500, 6000)])
 def test_vertex_count_kernels_equal_plain(card, n_u, n_v, m):
@@ -269,6 +285,41 @@ def test_matmul_kernel_equals_plain(card, M, N, K, trans_b):
     a, b = a.to(card), b.to(card)
     got, n = _launched("matmul", lambda: matmul(a, b, trans_b))
     assert n == 1 and torch.equal(got, ref.matmul_ref(a, b, trans_b))
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K", [(1000, 777, 1333), (129, 1001, 4099)])
+def test_matmul_3xtf32_at_ragged_shapes(card, M, N, K, trans_b):
+    """Equal to the plain (full-f32) version on 0/1 and integer inputs,
+    with no lo plane, with a lo plane in one operand (integers to 3 000
+    against 0/1), and within ``tf32x3_bound`` and relative 1e-5 of an f64
+    product on random f32 (normal and uniform; both lo planes): the
+    kernel's 3xTF32 split, its skipped planes and per-tile f32 sums."""
+    rng = np.random.default_rng(M + N + K)
+    shape_b = (N, K) if trans_b else (K, N)
+    # 0/1, integers below 50, then a lo plane in a or in b; every sum
+    # stays an integer below 2^24
+    for tops in ((2, 2), (50, 50), (3000, 2), (2, 3000)):
+        a, b = (torch.from_numpy(rng.integers(0, t, s).astype(np.float32))
+                .to(card) for t, s in zip(tops, ((M, K), shape_b)))
+        got, n = _launched("matmul", lambda: matmul(a, b, trans_b))
+        assert n == 1 and torch.equal(got, ref.matmul_ref(a, b, trans_b))
+    g = torch.Generator(device=card).manual_seed(K)
+    for draw in (torch.randn, torch.rand):
+        a, b = (draw(s, generator=g, device=card) for s in ((M, K), shape_b))
+        b_kn = b.T if trans_b else b
+        exact = a.double() @ b_kn.double()
+        err = (matmul(a, b, trans_b).double() - exact).abs()
+        assert (err <= tf32x3_bound(a, b_kn)).all()
+        assert (err.norm() / exact.norm()).item() <= 1e-5
+
+
+def test_matmul_a_at_shares_the_planes_of_a(card):
+    """``a @ aᵀ`` (the count's first product) passes one tensor twice; its
+    planes are split once and the result is unchanged."""
+    a = (torch.rand((300, 500), device=card) < 0.1).float()
+    assert torch.equal(matmul(a, a, True), matmul(a, a.clone(), True))
+    assert torch.equal(matmul(a, a, True), ref.matmul_ref(a, a, True))
 
 
 @pytest.mark.parametrize("n_u,n_v,m", [(50, 40, 260), (200, 100, 1100)])
@@ -392,6 +443,73 @@ def test_flash_attention_kernel_reads_strided_heads(card):
     want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True, offset=0)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("qs,ks,causal,offset", [
+    ((2, 4, 256, 64), (2, 4, 256, 64), True, None),        # D 64
+    ((2, 4, 256, 128), (2, 4, 256, 128), True, None),      # D 128
+    ((2, 4, 256, 256), (2, 4, 256, 256), True, None),      # D 256
+    ((1, 32, 384, 128), (1, 2, 384, 128), True, None),     # GQA 16:1
+    ((2, 8, 320, 256), (2, 1, 320, 256), True, None),      # MQA, D 256
+    ((1, 4, 1500, 128), (1, 4, 1500, 128), True, None),    # ragged S 1500
+    ((1, 4, 1500, 64), (1, 2, 1500, 64), False, None),     # ragged, non-causal
+    ((2, 8, 200, 128), (2, 8, 330, 128), False, None),     # non-causal, sq != sk
+    ((2, 8, 128, 128), (2, 2, 384, 128), True, None),      # offset: sq 128 < sk 384
+    ((1, 4, 192, 64), (1, 2, 128, 64), True, None),        # rows 0-63 see no key
+    ((1, 4, 160, 256), (1, 4, 160, 256), True, -40),       # a negative offset
+])
+def test_flash_attention_bf16_tensor_cores_match_plain(card, qs, ks, causal,
+                                                       offset):
+    """The bf16 kernel (wgmma + TMA for D 64/128/256) against the plain
+    version (f32 P) within 3e-2, the JAX package's bf16 tolerance, and
+    every row within ``BF16_ROW_RTOL``; rows that see no key are exactly
+    0."""
+    g = torch.Generator(device=card).manual_seed(sum(qs) + sum(ks))
+    q, k, v = (torch.randn(s, generator=g, device=card).bfloat16()
+               for s in (qs, ks, ks))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, offset=offset)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+    assert _worst_row_rel(got, want) <= BF16_ROW_RTOL
+    if causal:
+        off = ks[2] - qs[2] if offset is None else offset
+        blind = torch.arange(qs[2], device=card) + off < 0
+        assert not got[:, :, blind].any()
+
+
+# ‖Δ‖/‖ref‖ of one output row in bf16: P and the output are each rounded
+# to bf16 once (2⁻⁹ relative); 1e-2 is five of those.  A row's typical
+# value shrinks as it sees more keys, so an absolute tolerance alone
+# would pass a wrong late row.
+BF16_ROW_RTOL = 1e-2
+
+
+def _worst_row_rel(got, want) -> float:
+    """max over the rows that see a key of ‖got_row − want_row‖ /
+    ‖want_row‖."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    n = want.float().norm(dim=-1)
+    return (d[n > 0] / n[n > 0]).max().item()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_reads_strided_heads(card, d):
+    """The model's q/k/v in bf16: transposed views of [b, s, heads, d]
+    read through 4-D tensor maps with those strides."""
+    g = torch.Generator(device=card).manual_seed(d)
+    x = torch.randn((2, 200, 8, d), generator=g, device=card).bfloat16()
+    kv = torch.randn((2, 2, 200, 2, d), generator=g, device=card).bfloat16()
+    q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    assert not q.is_contiguous() and not v.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, offset=0)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True, offset=0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+    assert _worst_row_rel(got, want) <= BF16_ROW_RTOL
 
 
 def test_flash_attention_refusals(card):
