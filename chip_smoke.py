@@ -10,8 +10,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 1. setup — build the ten CUDA kernels from the six sources in
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel), print each kernel's registers, shared memory and spills
-   (``-Xptxas=-v``) and the HGMMA (``wgmma``) instructions of the two
-   tensor-core sources (``cuobjdump -sass``; none fails), and the card.
+   (``-Xptxas=-v``, and any warning that it serialised a kernel's
+   ``wgmma`` instructions), the warpgroup MMA instructions of each
+   tensor-core kernel (``cuobjdump -sass``: HGMMA in ``matmul`` and the
+   bf16 ``flash_attention``, IGMMA in the int8 vertex counts; none
+   fails), and the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes: ``fd_round_wing``/``fd_round_tip`` on the
    packed wing-60k / tip-1m partition stacks, round by round to the
@@ -48,9 +51,12 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``torch_fullsize.json``: dense-16k (16 384² adjacency) through
    ``--kind tip --engine dense``, then ``ops.vertex_butterflies``,
    ``ops.vertex_butterflies_tiled`` and ``ops.edge_wedge_matrix`` on its
-   adjacency (``vertex_count``, ``vertex_count_tile``, ``matmul`` — the
-   last 3xTF32 on the tensor cores, its bound beside the 3xTF32 and
-   exact-f32 ones), each
+   adjacency (``vertex_count``, ``vertex_count_tile`` — int8 on the
+   tensor cores, timed through the f32 interface, on pre-packed int8
+   operands, the pack alone, the 16-strip tiled count, and
+   ``torch._int_mm`` as a yardstick of the int8 product — and
+   ``matmul``, 3xTF32 on the tensor cores, its bound beside the 3xTF32
+   and exact-f32 ones), each
    held ``torch.equal`` to its plain version (for the whole-graph counts,
    the route ``core.counting`` itself takes) and to the JAX counts;
    wing-60k through ``--kind wing`` (beindex, the default) and
@@ -191,30 +197,63 @@ def ptxas_resources(log_text: str) -> list:
     return out
 
 
+# (source, kernel name fragment, instruction): each kernel of the
+# tensor-core designs and the warpgroup MMA its machine code must hold —
+# HGMMA accumulates in f32 (matmul's TF32, flash_attention's bf16), IGMMA
+# in s32 (the int8 vertex counts)
+TENSOR_CORE_KERNELS = (("butterfly_count", "matmul_tf32x3_kernel", "HGMMA"),
+                       ("butterfly_count", "vertex_count_kernel", "IGMMA"),
+                       ("flash_attention", "flash_tc_kernel", "HGMMA"))
+
+
 def tensor_core_sass(paths: dict) -> dict:
-    """The count of HGMMA (wgmma) instructions in the machine code of the
-    two tensor-core sources, from ``cuobjdump -sass``; fails if either
-    has none (the tensor cores would go unused).  Where the toolkit has
-    no ``cuobjdump`` the count is not measured (None)."""
+    """The warpgroup MMA instructions (HGMMA, IGMMA, ...) of each kernel
+    in the machine code of the tensor-core sources, from ``cuobjdump
+    -sass``, as {source: {kernel: {instruction: count}}}; fails if a
+    kernel of ``TENSOR_CORE_KERNELS`` has none of its instruction (the
+    tensor cores would go unused).  Where the toolkit has no
+    ``cuobjdump`` the counts are not measured (None)."""
+    import re
+
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     counts = {}
-    for name in ("butterfly_count", "flash_attention"):
+    for name in sorted({src for src, _, _ in TENSOR_CORE_KERNELS}):
         if not os.path.exists(tool):
             counts[name] = None
             continue
         sass = subprocess.run([tool, "-sass", paths[name]], check=True,
                               capture_output=True, text=True).stdout
-        counts[name] = sum(1 for line in sass.splitlines()
-                           if "HGMMA" in line)
-        if counts[name] == 0:
-            raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
-    log(f"[smoke]   HGMMA instructions (cuobjdump -sass): {counts}")
+        fns, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = fns.setdefault(m.group(1), {})
+            elif fn is not None:
+                for op in re.findall(r"\b([A-Z]*GMMA)\b", line):
+                    fn[op] = fn.get(op, 0) + 1
+        counts[name] = {f: c for f, c in fns.items() if c}
+        for src, frag, op in TENSOR_CORE_KERNELS:
+            if src != name:
+                continue
+            found = [f for f in fns if frag in f]
+            if not found or any(fns[f].get(op, 0) == 0 for f in found):
+                raise AssertionError(
+                    f"{name}: no {op} instruction in the SASS of {frag} "
+                    f"({ {f: fns[f] for f in found} })")
+    log(f"[smoke]   warpgroup MMA instructions (cuobjdump -sass): {counts}")
     return counts
 
 
+def serialized_wgmma(log_text: str) -> list:
+    """ptxas's warnings that it serialised a kernel's wgmmas (C75xx): the
+    kernel stays right but loses the overlap its design relies on."""
+    return [line.strip() for line in log_text.splitlines()
+            if "wgmma" in line and "serialized" in line]
+
+
 def smem_bytes() -> dict:
-    """Dynamic shared memory of the two tensor-core kernels' blocks (and
+    """Dynamic shared memory of the three tensor-core kernels' blocks (and
     of the CUDA-core attention kernel that f32 and D 32 take), from the
     constants the launch functions use."""
     import ctypes
@@ -222,11 +261,14 @@ def smem_bytes() -> dict:
     from repro_torch.kernels import _build
 
     mm, fa = _build.lib("butterfly_count"), _build.lib("flash_attention")
-    mm.matmul_smem_bytes.argtypes = []
-    mm.matmul_smem_bytes.restype = ctypes.c_longlong
+    for fn in (mm.matmul_smem_bytes, mm.vertex_count_smem_bytes):
+        fn.argtypes = []
+        fn.restype = ctypes.c_longlong
     fa.flash_attention_smem_bytes.restype = ctypes.c_longlong
     fa.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    out = {"matmul": int(mm.matmul_smem_bytes())}
+    out = {"matmul": int(mm.matmul_smem_bytes()),
+           "vertex_count / vertex_count_tile": int(
+               mm.vertex_count_smem_bytes())}
     for d in (64, 128, 256):
         out[f"flash_attention bf16 D={d}"] = int(
             fa.flash_attention_smem_bytes(d, 1))
@@ -697,7 +739,8 @@ def phase_engines(engines, fullsize, dev, launches):
     from repro_torch.core import counting
     from repro_torch.core.graph import powerlaw_bipartite
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.butterfly_count import (matmul, vertex_count,
+    from repro_torch.kernels.butterfly_count import (matmul, pack_s8,
+                                                     vertex_count,
                                                      vertex_count_tile)
     from repro_torch.launch.peel import sha256_int64
 
@@ -761,6 +804,10 @@ def phase_engines(engines, fullsize, dev, launches):
     # plain vertex count is core.counting's dense route (no single
     # library call); W = A·Aᵀ is symmetric, so its function needs only
     # the n(n−1)/2 off-diagonal pairs: n(n−1)k operations, not 2n²k.
+    # The bound prices the f32 interface (pack included); beside it the
+    # kernels on pre-packed int8 operands, the pack alone, and
+    # torch._int_mm of the packed operands (the whole int8 product, a
+    # yardstick only: it does not compute these functions).
     rows["vertex_count"] = check_compute_kernel(
         "vertex_count", lambda a: (vertex_count(a),),
         lambda a: (ref.vertex_butterflies_ref(a),), (A,),
@@ -774,6 +821,39 @@ def phase_engines(engines, fullsize, dev, launches):
         lambda s, a: (ref.vertex_count_tile_ref(s, a),), (strip, A),
         2.0 * 1024 * n * k, 4 * (1024 + n) * k + 4 * 1024, INT8_OP_PER_S, 5,
         fp32_bound=True)
+    A8 = pack_s8(A)
+    require_equal("pack_s8", (A8,), (ref.pack_s8_ref(A)[0],),
+                  "as pack_s8")
+    pack_ms = cuda_ms(lambda: (pack_s8(A),), 10)
+    for name, kernel, plain, args, reps, int_mm in (
+            ("vertex_count", vertex_count, ref.vertex_butterflies_ref,
+             (A8,), 5, lambda: (torch._int_mm(A8, A8.T),)),
+            ("vertex_count_tile", vertex_count_tile,
+             ref.vertex_count_tile_ref, (A8[:1024], A8), 10,
+             lambda: (torch._int_mm(A8[:1024], A8.T),))):
+        want = plain(*(x.float() for x in args))
+        require_equal(name, (kernel(*args),), (want,),
+                      "on pre-packed int8 operands")
+        del want
+        row = rows[name]
+        row.update(ms_packed=cuda_ms(lambda: (kernel(*args),), reps),
+                   pack_ms=pack_ms)
+        try:
+            row["int_mm_ms"] = cuda_ms(int_mm, 3)
+        except RuntimeError as exc:  # not on every PyTorch build
+            row["int_mm_ms"] = f"not measured: {exc}"[:200]
+    rows["vertex_count_tile"]["tiled_e2e_ms"] = cuda_ms(
+        lambda: (ops.vertex_butterflies_tiled(A, tile_rows=1024),), 3)
+    for name in ("vertex_count", "vertex_count_tile"):
+        row = rows[name]
+        log(f"[smoke]   {name}: f32 interface {row['ms']:.3f} ms, on "
+            f"pre-packed int8 {row['ms_packed']:.3f} ms, pack_s8 alone "
+            f"{row['pack_ms']:.3f} ms, torch._int_mm of the packed "
+            f"operands {row['int_mm_ms']} ms"
+            + (f", ops.vertex_butterflies_tiled (16 strips) "
+               f"{row['tiled_e2e_ms']:.3f} ms" if "tiled_e2e_ms" in row
+               else ""))
+    del A8, args, int_mm
     # matmul's two products, each bound by its 2n²k operations at the
     # peak of the operands' tensor-core type: int8 for A·Aᵀ (both 0/1, as
     # vertex_count's row counts), TF32 for W·A (W's counts overflow
@@ -1717,9 +1797,12 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
             path = os.path.join(_build.BUILD_DIR, f"{name}.log")
             if os.path.exists(path):
                 with open(path) as f:
-                    for fn, res in ptxas_resources(f.read()):
-                        log(f"[smoke]   ptxas {name}: {fn}: {res}")
-        hgmma = tensor_core_sass(_build.build_all())
+                    text = f.read()
+                for fn, res in ptxas_resources(text):
+                    log(f"[smoke]   ptxas {name}: {fn}: {res}")
+                for line in serialized_wgmma(text):
+                    log(f"[smoke]   ptxas {name} WARNING: {line}")
+        gmma = tensor_core_sass(_build.build_all())
         log(f"[smoke]   dynamic shared memory a block: {smem_bytes()}")
         log(f"[smoke]   torch {torch.__version__} cuda {torch.version.cuda} "
             f"on {torch.cuda.get_device_name(0)} ({smi})")
@@ -1792,9 +1875,11 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
                                        "bound_fp32_ms", "bound_bf16_ms",
                                        "by_dtype", "ms_by_product",
                                        "bound_by_product", "bound_3xtf32_ms",
-                                       "random_f32_rel_err", "library")
+                                       "random_f32_rel_err", "library",
+                                       "ms_packed", "pack_ms", "int_mm_ms",
+                                       "tiled_e2e_ms")
                if key in r}))
-    log(json.dumps(dict(phase_seconds=Phase.seconds, hgmma=hgmma,
+    log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
                         engine_seconds=engine_seconds, lm=lm_info)))

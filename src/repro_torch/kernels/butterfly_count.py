@@ -2,14 +2,18 @@
 
 ``vertex_count``: per-row butterflies Σ_{j≠r} C(W[r, j], 2) of a 0/1
 adjacency, W = A·Aᵀ never stored.  ``vertex_count_tile``: the same raw
-sum for one row strip against all of A, with no diagonal mask.
-``matmul``: an f32 product (``a @ b`` or ``a @ bᵀ``) by 3xTF32 on the
-tensor cores, f32 accumulation: exact where the operands are integers
-below 2²² and every partial sum an integer below 2²⁴ (the graph
-products), about an f32 product's rounding error otherwise.
-``ops.vertex_butterflies``, ``ops.vertex_butterflies_tiled`` and
-``ops.edge_wedge_matrix`` pad and combine them.  A CUDA tensor launches
-the kernel, a CPU tensor runs the plain version.
+sum for one row strip against all of A, with no diagonal mask.  Both
+take a 0/1 adjacency, as the JAX kernels do, and compute it exactly in
+int8 on the tensor cores; they take it as f32 or as ``pack_s8``'s int8
+matrix, so that a caller with many strips packs A once.  ``pack_s8``
+raises ``ValueError`` on any value other than 0 and 1.  ``matmul``: an
+f32 product (``a @ b`` or ``a @ bᵀ``) by 3xTF32 on the tensor cores, f32
+accumulation: exact where the operands are integers below 2²² and every
+partial sum an integer below 2²⁴ (the graph products), about an f32
+product's rounding error otherwise.  ``ops.vertex_butterflies``,
+``ops.vertex_butterflies_tiled`` and ``ops.edge_wedge_matrix`` pad and
+combine them.  A CUDA tensor launches the kernel, a CPU tensor runs the
+plain version.
 """
 from __future__ import annotations
 
@@ -20,12 +24,15 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["matmul", "vertex_count", "vertex_count_tile"]
+__all__ = ["matmul", "pack_s8", "vertex_count", "vertex_count_tile"]
 
 
 @functools.cache
 def _lib():
     lib = _build.lib("butterfly_count")
+    lib.pack_s8_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.pack_s8_launch.restype = ctypes.c_int
     lib.vertex_count_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.vertex_count_launch.restype = ctypes.c_int
@@ -35,38 +42,81 @@ def _lib():
     return lib
 
 
-def _count(name, A_rows, A, diag0):
-    rows, k = A_rows.shape
+def pack_s8(A):
+    """``A``: (n, k) f32 0/1 adjacency.  Returns the vertex-count kernels'
+    operand: (n, kp) int8, kp = k rounded up to a multiple of 16, zero
+    past column k.  Raises ``ValueError`` if A holds any other value (NaN
+    included): the kernel flags it, and the flag is read once a call."""
+    if A.device.type == "cpu":
+        out, odd = ref.pack_s8_ref(A)
+    else:
+        n, k = A.shape
+        _build.require("pack_s8", ("A", A, torch.float32, (n, k)))
+        out = torch.empty((n, -(-k // 16) * 16), dtype=torch.int8,
+                          device=A.device)
+        odd = torch.empty((1,), dtype=torch.int32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _lib().pack_s8_launch(A.data_ptr(), out.data_ptr(),
+                                    odd.data_ptr(), n, k, out.shape[1], stream)
+        _build.check(err, "pack_s8")
+        _build.LAUNCHES["pack_s8"] += 1
+    if bool(odd):
+        raise ValueError("vertex counts take a 0/1 adjacency: A holds a "
+                         "value other than 0 and 1")
+    return out
+
+
+def _packed(A):
+    """``A`` as the kernels' int8 operand: packed here if it is f32,
+    taken as it is if it is already ``pack_s8``'s int8."""
+    if A.dtype == torch.int8:
+        return A
+    if A.dtype != torch.float32:
+        raise TypeError(f"vertex counts take an f32 0/1 adjacency or its "
+                        f"pack_s8 int8, got {A.dtype}")
+    return pack_s8(A)
+
+
+def _count(name, A_rows, A, triangular):
+    if A.device.type == "cpu":
+        A_rows, A = A_rows.to(torch.float32), A.to(torch.float32)
+        return (ref.vertex_butterflies_ref(A) if triangular
+                else ref.vertex_count_tile_ref(A_rows, A))
+    rows, kp = A_rows.shape
     n = A.shape[0]
-    f32 = torch.float32
-    _build.require(name, ("A_rows", A_rows, f32, (rows, k)),
-                   ("A", A, f32, (n, k)))
-    acc = torch.zeros((rows,), dtype=torch.int64, device=A.device)
-    out = torch.empty((rows,), dtype=f32, device=A.device)
+    _build.require(name, ("A_rows", A_rows, torch.int8, (rows, kp)),
+                   ("A", A, torch.int8, (n, kp)))
+    if kp % 16 or A_rows.data_ptr() % 16 or A.data_ptr() % 16:
+        raise ValueError(f"{name}: int8 operands need 16-byte aligned rows "
+                         f"of a multiple of 16 values (pack_s8 makes them)")
+    acc = torch.empty((rows,), dtype=torch.int64, device=A.device)
+    out = torch.empty((rows,), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = _lib().vertex_count_launch(
         A_rows.data_ptr(), A.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        rows, n, k, diag0, stream)
+        rows, n, kp, int(triangular), stream)
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out
 
 
 def vertex_count(A):
-    """``A``: (n, k) f32 0/1 adjacency.  Returns the f32 per-row
-    butterflies (n,), exact while each stays below 2²⁴."""
-    if A.device.type == "cpu":
-        return ref.vertex_butterflies_ref(A)
-    return _count("vertex_count", A, A, 0)
+    """``A``: (n, k) f32 0/1 adjacency, or its ``pack_s8``.  Returns the
+    f32 per-row butterflies (n,), exact while each stays below 2²⁴."""
+    A = _packed(A)
+    return _count("vertex_count", A, A, triangular=True)
 
 
 def vertex_count_tile(A_rows, A):
-    """``A_rows``: (rows, k) f32 0/1 row strip of ``A`` (n, k).  Returns
-    the f32 raw sums Σ_j C(W[r, j], 2), W = A_rows·Aᵀ, self pair
+    """``A_rows``: (rows, k) f32 0/1 row strip of ``A`` (n, k), or both
+    as ``pack_s8`` int8 (a strip as a row slice of the packed A).
+    Returns the f32 raw sums Σ_j C(W[r, j], 2), W = A_rows·Aᵀ, self pair
     included, exact while each stays below 2²⁴."""
-    if A.device.type == "cpu":
-        return ref.vertex_count_tile_ref(A_rows, A)
-    return _count("vertex_count_tile", A_rows, A, -1)
+    if A_rows.dtype != A.dtype:
+        raise TypeError(f"vertex_count_tile: A_rows is {A_rows.dtype}, A is "
+                        f"{A.dtype}; pass both f32 or both packed")
+    return _count("vertex_count_tile", _packed(A_rows), _packed(A),
+                  triangular=False)
 
 
 def matmul(a, b, trans_b: bool = False):

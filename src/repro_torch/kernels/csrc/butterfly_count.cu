@@ -1,5 +1,5 @@
 // Butterfly counting by matrix products for Hopper (sm_90a): three
-// kernels, three launch functions.
+// kernels and the pass that packs their operands.
 //
 // 1. vertex_count — per-row butterflies of a 0/1 adjacency A [n, k]:
 //    out[r] = sum_{j != r} C(W[r, j], 2) with W = A * A^T.
@@ -16,23 +16,45 @@
 //    count (W = A * A^T, then W * A).
 //
 // What bounds them on this card: operations.  On dense-16k (n = k =
-// 16 384) one product is 2 n^2 k = 8.8 TFLOP; its 1 GB inputs are 0.3 ms
-// of memory traffic.
+// 16 384) one product is 2 n^2 k = 8.8 T operations; its 1 GB of f32
+// inputs are 0.3 ms of memory traffic.
 //
-// vertex_count and vertex_count_tile: the TPU kernels carry an
-// accumulator in VMEM across a sequential column grid; Hopper blocks run
-// in no order, so each block owns one 128 x 128 tile of W and walks the
-// whole k dimension itself (a shared-memory SGEMM: 8-deep k slices, 256
-// threads, an 8 x 8 register tile per thread, f32 FMA on the CUDA cores,
-// bound 65.6 ms at 67 TFLOP/s on dense-16k).  They never store W: each
-// block turns its tile into C(w, 2) at once, in int64, reduces each row
-// over its 128 columns and adds the row partials into an int64
-// accumulator with atomicAdd.  Integer addition is order-free, so any
-// block order gives the same sum, and the caller converts to f32 only at
-// the interface.  W entries are common-neighbour counts (integers <= k <
-// 2^24), so the f32 FMA sums that form them are exact in any order.  The
-// diagonal is masked by global row and column index; every load is
-// bounds-checked, so no input has to be padded.
+// vertex_count and vertex_count_tile: int8 on the tensor cores (wgmma
+// s8 * s8 -> s32).  A is 0/1, so it is exact in s8, and every W entry
+// is a common-neighbour count (an integer <= k < 2^31), exact in s32 in
+// any order: the products are exact, with no rounding to control.  On
+// dense-16k vertex_count needs n (n - 1) k = 4.4 T operations (W is
+// symmetric: only the pairs c > r), 2.22 ms at the 1 979 TOP/s int8
+// peak.  A pack pass (pack_s8_kernel) writes the f32 0/1 operand as
+// int8, K-major, rows padded with zeros to a multiple of 16 bytes (TMA's
+// row pitch), and flags any value that is not exactly 0 or 1 (the
+// wrapper raises on the flag: there is no path for such input).  The
+// product kernel (vc::vertex_count_kernel) is matmul's pipeline with
+// int8 operands: a block owns a 128 x 256 tile of W, two consumer
+// warpgroups of 64 rows each issue m64n256k32 wgmmas from shared memory,
+// both operands K-major rows of the same packed matrix (A^T's rows are
+// A's rows), fed by a producer warpgroup one thread of which issues the
+// TMA loads of 128-deep k tiles (one 128-byte swizzle row of int8; 48 KB
+// a stage) into a four-stage mbarrier ring.  Integer sums need no care
+// for order, so one s32 accumulator (128 registers a thread) runs over
+// the whole of K, and a stage is freed as soon as the next stage's
+// wgmmas are issued (one wgmma group stays in flight).  W is never
+// stored: the epilogue turns each entry into C(w, 2) in int64 and sums
+// it.  vertex_count launches only the tiles of W that hold pairs c > r:
+// the 256 x 256 squares on and above the diagonal, each as two 128-row
+// tiles, walked in bands of 8 square rows (the band's own triangle, then
+// the squares to its right column by column, so that neighbouring blocks
+// share panels in L2).  Each counted entry (r, c > r) adds C(w, 2) to row
+// r (a quad of lanes shuffles its row sums together) and to row c (the
+// column sums meet through shuffles across a warp and shared memory
+// across the warpgroups); each tile then makes one int64 atomicAdd per
+// row and per column.  The diagonal and everything below it are never
+// counted.  vertex_count_tile has no symmetry to use: it runs every tile
+// of A_rows * A^T, row sums only, in groups of 8 tile rows.  Integer
+// addition is order-free, so any block order gives the same sum, and the
+// int64 total becomes f32 only at the interface.  TMA zero-fills the
+// ragged edges and the padded columns are zero, so no input is padded
+// beyond its row pitch: a zero row or column of W adds C(0, 2) = 0.
 //
 // matmul: 3xTF32 on the tensor cores (wgmma).  One TF32 product of
 // dense-16k's 16 384^3 is 8.8 TFLOP, 17.8 ms at the 495 TFLOP/s TF32 peak
@@ -65,93 +87,222 @@
 // factor (PERF.md has the measured value); the TPU kernel's lax.dot at
 // default precision is no closer.  A non-finite hi gets lo = 0, so inf
 // stays inf.
-#include "common.cuh"
 #include "hopper.cuh"
 
-namespace {
+namespace vc {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
-constexpr int kPad = 4;  // keeps the transposed stores conflict-free
+constexpr int BM = 128, BN = 256, BK = 128;  // BK: one 128-byte row of int8
+constexpr int kWG = 2;                       // consumer warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kWG + 1);    // + the producer warpgroup
+// registers a thread: 168 at launch (65 536 / 384); the producer gives
+// 128 of them back, each consumer takes 64 more
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kStages = 4;
+constexpr int kWarps = 4 * kWG;              // arrivals that free a ring stage
+constexpr int kGroup = 8;                    // tile rows / square rows walked together
+constexpr uint32_t A_BYTES = BM * BK;        // 16 KB
+constexpr uint32_t B_BYTES = BN * BK;        // 32 KB
+constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr uint32_t COL_BYTES = sizeof(long long) * kWarps * BN;  // column sums, 16 KB
+constexpr size_t SMEM = 1024 + kStages * STAGE_BYTES + COL_BYTES + 16 * kStages;
 
-// Rows [r0, r0 + BM) x cols [k0, k0 + BK) of a row-major [rows, K]
-// matrix, stored transposed: s[kk][r].  Out-of-range elements are 0.
-__device__ __forceinline__ void load_rows_t(float (*s)[BM + kPad], const float* __restrict__ a,
-                                            long long lda, int rows, int K, int r0, int k0) {
+// out [rows, Kp] int8 (row pitch Kp, a multiple of 16) from the f32
+// matrix x [rows, K]: 1 where x != 0, columns K..Kp-1 zero.  Sets *odd to
+// 1 if any x is not exactly 0 or 1, NaN included (the caller zeroes it).
+// A thread writes four values; `vec`: x's rows may be read as float4.
+__global__ void __launch_bounds__(256)
+    pack_s8_kernel(const float* __restrict__ x, int rows, int K, int Kp, int vec,
+                   uint32_t* __restrict__ out, int* __restrict__ odd) {
+  const int words = Kp / 4;
+  const long long w = (long long)blockIdx.x * 256 + threadIdx.x;
+  bool bad = false;
+  if (w < (long long)rows * words) {
+    const int r = (int)(w / words), k0 = (int)(w % words) * 4;
+    const float* xr = x + (long long)r * K + k0;
+    float v[4];
+    if (vec && k0 < K) {
+      const float4 t = *reinterpret_cast<const float4*>(xr);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
 #pragma unroll
-  for (int i = 0; i < (BM * BK) / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / BK, kk = e % BK;
-    const int gr = r0 + r, gk = k0 + kk;
-    s[kk][r] = (gr < rows && gk < K) ? __ldg(a + gr * lda + gk) : 0.0f;
+      for (int e = 0; e < 4; ++e) v[e] = k0 + e < K ? xr[e] : 0.0f;
+    }
+    uint32_t packed = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bad |= v[e] != 0.0f && v[e] != 1.0f;
+      packed |= (uint32_t)(v[e] != 0.0f) << (8 * e);
+    }
+    out[w] = packed;
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *odd = 1;
+}
+
+// The (tile row, tile column) of block p.  Every tile (kTri false):
+// kGroup tile rows at a time, column by column within a group.  The
+// triangle (kTri): the 256 x 256 squares (I, J >= I), each as the two
+// 128-row tiles 2I and 2I + 1 (neighbouring blocks), kGroup square rows
+// at a time: the band's own triangle (J = I0 .. I0 + gs - 1, each with
+// I0 <= I <= J), then the squares to its right, column by column.
+template <bool kTri>
+__device__ __forceinline__ void tile_of(int p, int tiles_m, int tiles_n, int& tm, int& tn) {
+  if (!kTri) {
+    const int per_group = kGroup * tiles_n;
+    const int first = (p / per_group) * kGroup;
+    const int gm = min(tiles_m - first, kGroup);
+    tm = first + (p % per_group) % gm;
+    tn = (p % per_group) / gm;
+    return;
+  }
+  const int half = p & 1;
+  p >>= 1;
+  for (int i0 = 0;; i0 += kGroup) {
+    const int gs = min(kGroup, tiles_n - i0);
+    const int tri = gs * (gs + 1) / 2;
+    const int count = tri + (tiles_n - i0 - gs) * gs;
+    if (p < count) {
+      int I, J;
+      if (p < tri) {
+        int t = 0;
+        while ((t + 1) * (t + 2) / 2 <= p) ++t;
+        J = i0 + t;
+        I = i0 + p - t * (t + 1) / 2;
+      } else {
+        J = i0 + gs + (p - tri) / gs;
+        I = i0 + (p - tri) % gs;
+      }
+      tm = 2 * I + half;
+      tn = J;
+      return;
+    }
+    p -= count;
   }
 }
 
-// acc[TM][TN] += A_tile * B_tile^T over the whole K dimension for the
-// block's (r0, c0) tile; A and B are row-major [M, K] and [N, K].
-__device__ __forceinline__ void tile_product(float (&acc)[TM][TN], const float* __restrict__ a,
-                                             const float* __restrict__ b, int M, int N, int K,
-                                             int r0, int c0) {
-  __shared__ __align__(16) float As[BK][BM + kPad];
-  __shared__ __align__(16) float Bs[BK][BN + kPad];
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_rows_t(As, a, K, M, K, r0, k0);
-    load_rows_t(Bs, b, K, N, K, c0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-      const float4* ap = reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4* bp = reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-#pragma unroll
-      for (int q = 0; q < TM / 4; ++q) {
-        const float4 v = ap[q];
-        av[4 * q] = v.x; av[4 * q + 1] = v.y; av[4 * q + 2] = v.z; av[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        const float4 v = bp[q];
-        bv[4 * q] = v.x; bv[4 * q + 1] = v.y; bv[4 * q + 2] = v.z; bv[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
+// acc64[r] += sum over the block's tile of W = A_rows * A^T of C(w, 2):
+// row r's sum (kTri false), or, with kTri, for each entry (r, c > r) of
+// W = A * A^T, C(w, 2) to row r and to row c.  a_map / b_map: TMA maps
+// of the packed int8 A_rows [rows, Kp] (boxes 128 x 128) and A [n, Kp]
+// (boxes 256 x 128).
+template <bool kTri>
+__global__ void __launch_bounds__(kThreads, 1)
+    vertex_count_kernel(const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map,
+                        unsigned long long* __restrict__ acc64, int rows, int n, int k_tiles,
+                        int tiles_m, int tiles_n) {
+  int tm, tn;
+  tile_of<kTri>(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  if (tm >= tiles_m) return;  // the empty lower half of the last square row
 
-// Per-row sum of C(W[r, j], 2) over the block's tile of W = A_rows * A^T,
-// added into acc64[r] (int64).  `diag0` >= 0 masks W[r, j] where
-// diag0 + r == j (global indices); -1 masks nothing.
-__global__ void __launch_bounds__(kThreads)
-    vertex_count_kernel(const float* __restrict__ a_rows, const float* __restrict__ a,
-                        unsigned long long* __restrict__ acc64, int rows, int n, int K,
-                        int diag0) {
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-  float acc[TM][TN];
-  tile_product(acc, a_rows, a, rows, n, K, r0, c0);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty * TM + i;
-    long long s = 0;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx * TN + j;
-      const long long w = (long long)acc[i][j];
-      if (c < n && !(diag0 >= 0 && diag0 + r == c)) s += w * (w - 1) / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  long long* colsum = reinterpret_cast<long long*>(smem + kStages * STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * STAGE_BYTES + COL_BYTES);
+  uint64_t* empty = full + kStages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
     }
-    // the 16 threads of one row group are 16 neighbouring lanes
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup index, broadcast from lane 0 so that ptxas knows the
+  // branches around the wgmmas to be warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kWG) {
+    // ---- producer: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kWG * 128) {
+      tma_prefetch(&a_map);
+      tma_prefetch(&b_map);
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        uint8_t* st = smem + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(st, &a_map, &full[s], kt * BK, tm * BM);
+        tma_load_2d(st + A_BYTES, &b_map, &full[s], kt * BK, tn * BN);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  setmaxnreg_inc<kConsumerRegs>();
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  int acc[BN / 2];
 #pragma unroll
-    for (int o = (BN / TN) / 2; o > 0; o >>= 1) s += __shfl_xor_sync(REPRO_FULL_MASK, s, o);
-    if (tx == 0 && r < rows && s != 0) atomicAdd(acc64 + r, (unsigned long long)s);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + 64 * BK * wg;
+    const uint32_t b = smem_u32(smem + s * STAGE_BYTES) + A_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)  // k32 steps: 32 bytes along each row
+      wgmma_s8_n256(acc, desc_sw128(a + 32 * kk, 16, 1024), desc_sw128(b + 32 * kk, 16, 1024),
+                    1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's wgmmas are done: free it
+    fence_regs(acc);
+    mbar_arrive_if(&empty[(kt + kStages - 1) % kStages], kt > 0 && lane == 0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // ---- epilogue: C(w, 2) of each entry, summed by row (and by column)
+  // acc[4 j + 2 h + e] is row r0 + 8 h, column c0 + 8 j + e
+  const int r0 = tm * BM + 64 * wg + 16 * warp + lane / 4;
+  const int c0 = tn * BN + 2 * (lane % 4);
+  long long* warp_cols = colsum + (wg * 4 + warp) * BN;
+  long long rsum[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    long long csum[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long w = acc[4 * j + 2 * h + e];
+        const long long v = (!kTri || c0 + 8 * j + e > r0 + 8 * h) ? w * (w - 1) / 2 : 0;
+        rsum[h] += v;
+        csum[e] += v;
+      }
+    if (kTri) {
+      // the warp's 16 rows: lanes of one lane % 4 hold the same columns
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) csum[e] += __shfl_xor_sync(0xffffffffu, csum[e], o);
+      if (lane < 4) {
+        warp_cols[8 * j + 2 * lane] = csum[0];
+        warp_cols[8 * j + 2 * lane + 1] = csum[1];
+      }
+    }
+  }
+  // a row's 256 columns lie in the four lanes of a quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+    rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+    const int r = r0 + 8 * h;
+    if (lane % 4 == 0 && r < rows && rsum[h] != 0)
+      atomicAdd(acc64 + r, (unsigned long long)rsum[h]);
+  }
+  if (kTri) {
+    named_barrier_sync(1, kWG * 128);  // the consumers only
+    const int t = threadIdx.x;         // column t of the tile
+    long long v = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += colsum[w * BN + t];
+    const int c = tn * BN + t;
+    if (c < n && v != 0) atomicAdd(acc64 + c, (unsigned long long)v);
   }
 }
 
@@ -161,11 +312,20 @@ __global__ void count_to_f32_kernel(const long long* __restrict__ acc64, float* 
   if (r < rows) out[r] = (float)acc64[r];  // round to nearest, as an f32 sum would
 }
 
-inline dim3 tiles(int rows, int cols) {
-  return dim3((unsigned)((cols + BN - 1) / BN), (unsigned)((rows + BM - 1) / BM));
+template <bool kTri>
+cudaError_t launch_count(const CUtensorMap& a_map, const CUtensorMap& b_map,
+                         unsigned long long* acc64, int rows, int n, int Kp, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(vertex_count_kernel<kTri>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles_m = (rows + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const int blocks = kTri ? tiles_n * (tiles_n + 1) : tiles_m * tiles_n;
+  vertex_count_kernel<kTri><<<(unsigned)blocks, kThreads, SMEM, s>>>(
+      a_map, b_map, acc64, rows, n, (Kp + BK - 1) / BK, tiles_m, tiles_n);
+  return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace vc
 
 namespace mm {
 
@@ -361,18 +521,50 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace mm
 
-// out[r] (f32) = sum_j C(W[r, j], 2), W = A_rows * A^T, for r < rows;
-// `diag0` >= 0 skips j == diag0 + r.  `acc64` is int64 scratch of `rows`
-// elements that the caller has zeroed.
+// out [rows, Kp] int8 (Kp: a multiple of 16, >= K) = the f32 0/1 matrix
+// x [rows, K], K-major, zero past column K; *odd (int32 scratch) = 1 if
+// x holds a value other than 0 and 1, else 0.
+extern "C" int pack_s8_launch(const void* x, void* out, void* odd, int rows, int K, int Kp,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(odd, 0, sizeof(int), s);
+  if (err != cudaSuccess || rows <= 0 || Kp <= 0) return (int)err;
+  const long long words = (long long)rows * (Kp / 4);
+  const int vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  vc::pack_s8_kernel<<<(unsigned)((words + 255) / 256), 256, 0, s>>>(
+      (const float*)x, rows, K, Kp, vec, (uint32_t*)out, (int*)odd);
+  return (int)cudaGetLastError();
+}
+
+// out[r] (f32) = sum_j C(W[r, j], 2), W = A_rows * A^T, for r < rows,
+// from the packed int8 A_rows [rows, Kp] and A [n, Kp] (Kp a multiple of
+// 16, both 16-byte aligned).  With `triangular` (A_rows == A, rows == n)
+// the diagonal j == r is left out and only the pairs j > r are computed.
+// `acc64` is int64 scratch of `rows` values.
 extern "C" int vertex_count_launch(const void* a_rows, const void* a, void* acc64, void* out,
-                                   int rows, int n, int K, int diag0, void* stream) {
+                                   int rows, int n, int Kp, int triangular, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (rows <= 0) return (int)cudaGetLastError();
-  if (n > 0)
-    vertex_count_kernel<<<tiles(rows, n), kThreads, 0, s>>>(
-        (const float*)a_rows, (const float*)a, (unsigned long long*)acc64, rows, n, K, diag0);
-  count_to_f32_kernel<<<(rows + 255) / 256, 256, 0, s>>>((const long long*)acc64, (float*)out,
-                                                          rows);
+  cudaError_t err = cudaMemsetAsync(acc64, 0, sizeof(long long) * (size_t)rows, s);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0 && Kp > 0) {
+    CUtensorMap maps[2];
+    const void* ptrs[2] = {a_rows, a};
+    const int extent[2] = {rows, n}, box_rows[2] = {vc::BM, vc::BN};
+    for (int i = 0; i < 2; ++i) {
+      const uint64_t dims[2] = {(uint64_t)Kp, (uint64_t)extent[i]};
+      const uint64_t strides[1] = {(uint64_t)Kp};
+      const uint32_t box[2] = {(uint32_t)vc::BK, (uint32_t)box_rows[i]};
+      err = encode_sw128(&maps[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ptrs[i], dims, strides, box);
+      if (err != cudaSuccess) return (int)err;
+    }
+    unsigned long long* acc = (unsigned long long*)acc64;
+    err = triangular ? vc::launch_count<true>(maps[0], maps[1], acc, rows, n, Kp, s)
+                     : vc::launch_count<false>(maps[0], maps[1], acc, rows, n, Kp, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  vc::count_to_f32_kernel<<<(rows + 255) / 256, 256, 0, s>>>((const long long*)acc64,
+                                                              (float*)out, rows);
   return (int)cudaGetLastError();
 }
 
@@ -426,5 +618,7 @@ extern "C" int matmul_launch(const void* a, const void* b, void* c, void* a_plan
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory (bytes) of one matmul_tf32x3_kernel block.
+// Dynamic shared memory (bytes) of one block of the two tensor-core
+// product kernels.
 extern "C" long long matmul_smem_bytes() { return (long long)mm::SMEM; }
+extern "C" long long vertex_count_smem_bytes() { return (long long)vc::SMEM; }

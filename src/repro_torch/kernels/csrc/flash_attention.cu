@@ -56,8 +56,9 @@
 //   rows and four interleaved key columns of the score tile (float4
 //   shared-memory reads, conflict-free with a row pitch of D + 4) and
 //   the same four rows times D / 16 columns of the accumulator.  bf16
-//   inputs are widened on load.  Its f32 case is a 3xTF32 tensor-core
-//   candidate (ROADMAP).
+//   inputs are widened on load, and P is rounded to bf16 before P v
+//   while its row sum takes the unrounded values, as the TPU kernel
+//   does.  Its f32 case is a 3xTF32 tensor-core candidate (ROADMAP).
 //
 // In both, masked scores are -inf and a row whose maximum is still -inf
 // contributes nothing, so fully masked rows stay 0 instead of averaging
@@ -130,6 +131,16 @@ __device__ __forceinline__ void store_out(float* o, const float* v, int n) {
 
 __device__ __forceinline__ void store_out(__nv_bfloat16* o, const float* v, int n) {
   for (int e = 0; e < n; ++e) o[e] = __float2bfloat16(v[e]);
+}
+
+// p as P.V multiplies it: rounded to bf16 for bf16 inputs (the TPU
+// kernel's p.astype(v.dtype)), unchanged for f32.
+template <typename T>
+__device__ __forceinline__ float as_value_type(float p) { return p; }
+
+template <>
+__device__ __forceinline__ float as_value_type<__nv_bfloat16>(float p) {
+  return __bfloat162float(__float2bfloat16(p));
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -246,8 +257,8 @@ flash_attention_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = none ? 0.0f : expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kPP + tx + 16 * j] = p;
-        sum += p;
+        Ps[(ty + 16 * i) * kPP + tx + 16 * j] = as_value_type<T>(p);
+        sum += p;  // l sums the unrounded p, as the TPU kernel's does
       }
       l[i] = l[i] * alpha + half_warp_sum(sum);
       m[i] = m_new;

@@ -10,8 +10,10 @@ other switch.  ``pair_wedge_counts``, ``tip_slot_loss`` and
 ``tile_row_counts`` to (``_row_bucket``, 128), the butterfly-counting
 wrappers to 128 multiples and ``pack_blooms`` to ``bb`` bloom rows and a
 128-multiple of links, as the JAX package's wrappers do, so both
-packages hand their kernels the same shapes.  ``flash_attention`` pads
-nothing: its kernel masks the ragged edge itself.
+packages hand their kernels the same shapes (the vertex counts then
+pack their operand to int8, ``butterfly_count.pack_s8``).
+``flash_attention`` pads nothing: its kernel masks the ragged edge
+itself.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from . import _build
 from .bloom_update import bloom_update as _bloom_update
-from .butterfly_count import matmul, vertex_count, vertex_count_tile
+from .butterfly_count import matmul, pack_s8, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
 from .flash_attention import flash_attention as _flash_attention
 from .support_update import support_update as _support_update
@@ -139,7 +141,8 @@ def vertex_butterflies(A: torch.Tensor, bm: int = 128,
                        bn: int = 128) -> torch.Tensor:
     """Per-row butterfly counts (f32) of a 0/1 adjacency through the
     fused ``vertex_count`` kernel; rows padded to ``bm``/``bn`` and
-    columns to 128 multiples, as the JAX wrapper pads."""
+    columns to 128 multiples, as the JAX wrapper pads.  Raises
+    ``ValueError`` on a value other than 0 and 1."""
     n = A.shape[0]
     Ap = _pad_to(_pad_to(A.to(torch.float32), bm, 0), 128, 1)
     # rows must also tile by bn for the column blocks of W
@@ -151,21 +154,23 @@ def vertex_butterflies_tiled(A: torch.Tensor, tile_rows: int = 1024,
                              bm: int = 128, bn: int = 128) -> torch.Tensor:
     """Per-row butterfly counts with one row strip in flight at a time.
 
-    A host loop over ``tile_rows``-row strips of the padded adjacency,
-    each through the ``vertex_count_tile`` kernel, which skips the
-    diagonal mask; the exact self-pair term C(d_r, 2) is subtracted here
-    (in int64, after rounding the f32 strip sums).  Every strip is
-    padded to the same shape.  Returns int64 counts on ``A``'s device."""
+    The padded adjacency (rows to ``bn``, columns to 128, as the JAX
+    wrapper pads) is packed to int8 once (``pack_s8``, which raises
+    ``ValueError`` on a value other than 0 and 1); a host loop then
+    hands each ``tile_rows``-row strip, a row slice of the packed matrix,
+    to the ``vertex_count_tile`` kernel, which skips the diagonal mask;
+    the exact self-pair term C(d_r, 2) is subtracted here (in int64,
+    after rounding the f32 strip sums).  Returns int64 counts on ``A``'s
+    device."""
     n = A.shape[0]
     A = A.to(torch.float32)
     deg = A.sum(dim=1).to(torch.int64)
     tile_rows = max(-(-tile_rows // bm) * bm, bm)
-    Ap = _pad_to(_pad_to(A, bn, 0), 128, 1).contiguous()
+    Ap = pack_s8(_pad_to(_pad_to(A, bn, 0), 128, 1).contiguous())
     out = torch.zeros((n,), dtype=torch.float64, device=A.device)
     for r0 in range(0, n, tile_rows):
         r1 = min(r0 + tile_rows, n)
-        tile = _pad_to(Ap[r0:r1], tile_rows, 0).contiguous()
-        out[r0:r1] = vertex_count_tile(tile, Ap)[: r1 - r0].to(torch.float64)
+        out[r0:r1] = vertex_count_tile(Ap[r0:r1], Ap).to(torch.float64)
     self_pair = deg * (deg - 1) // 2
     return torch.round(out).to(torch.int64) - self_pair
 

@@ -21,6 +21,7 @@ __all__ = [
     "fd_round_tip_ref",
     "matmul_f32",
     "matmul_ref",
+    "pack_s8_ref",
     "vertex_butterflies_ref",
     "vertex_count_tile_ref",
     "edge_wedge_matrix_ref",
@@ -164,6 +165,18 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return matmul_f32(a, b.T if trans_b else b)
 
 
+def pack_s8_ref(A: torch.Tensor):
+    """The vertex-count kernels' operand of an f32 0/1 matrix A (n, k):
+    (n, kp) int8, kp = k rounded up to a multiple of 16, 1 where A != 0,
+    zero past column k; and a bool scalar: A holds a value other than 0
+    and 1 (NaN included)."""
+    n, k = A.shape
+    out = torch.zeros((n, -(-k // 16) * 16), dtype=torch.int8,
+                      device=A.device)
+    out[:, :k] = A != 0
+    return out, ~((A == 0) | (A == 1)).all()
+
+
 def vertex_butterflies_ref(A: torch.Tensor) -> torch.Tensor:
     """⋈_u per row of A: Σ_{u'≠u} C(W[u,u'], 2) with W = A Aᵀ."""
     W = matmul_f32(A, A.T)
@@ -215,8 +228,12 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None,
     key j is visible to query i iff j <= i + ``offset``; the default
     offset sk − sq aligns the last query with the last key.  Scores,
     softmax and products are f32 (full precision); the output has q's
-    dtype.  A row that sees no key gives 0 (the JAX oracle's −inf mask
-    leaves it NaN).
+    dtype.  Where v is not f32 (bf16), the unnormalised weights
+    e = exp(s − rowmax) are rounded to v's dtype before e·v and the sum
+    that divides it is taken from the unrounded e: the TPU kernel's
+    arithmetic (``p.astype(v.dtype)`` with ``l`` summed from f32 ``p``).
+    A row that sees no key gives 0 (the JAX oracle's −inf mask leaves it
+    NaN).
     """
     B, H, sq, D = q.shape
     KVH, sk = k.shape[1], k.shape[2]
@@ -229,10 +246,16 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None,
         seen = (torch.arange(sk, device=q.device)[None, :]
                 <= torch.arange(sq, device=q.device)[:, None] + offset)
         s = s.masked_fill(~seen, float("-inf"))
-        p = torch.where(seen.any(dim=1)[:, None], torch.softmax(s, dim=-1),
-                        0.0)
+    if v.dtype != torch.float32:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        l = e.sum(dim=-1, keepdim=True)
+        out = matmul_f32(e.to(v.dtype).float().reshape(B, KVH, -1, sk),
+                         v.float()).reshape(l.shape[:-1] + (-1,))
+        out = torch.where(l > 0, out / l, 0.0)
     else:
         p = torch.softmax(s, dim=-1)
-    out = matmul_f32(p.reshape(B, KVH, (H // KVH) * sq, sk),
-                     v.to(torch.float32))
+        if causal:
+            p = torch.where(seen.any(dim=1)[:, None], p, 0.0)
+        out = matmul_f32(p.reshape(B, KVH, (H // KVH) * sq, sk), v)
     return out.reshape(B, H, sq, v.shape[-1]).to(q.dtype)

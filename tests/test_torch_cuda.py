@@ -20,9 +20,10 @@ from repro_torch.core.beindex import build_beindex
 from repro_torch.core.distributed import (pack_fd_partitions_csr,
                                           pack_fd_partitions_tip_csr)
 from repro_torch.core.graph import powerlaw_bipartite, random_bipartite
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.bloom_update import bloom_update
-from repro_torch.kernels.butterfly_count import (matmul, vertex_count,
+from repro_torch.kernels.butterfly_count import (matmul, pack_s8,
+                                                 vertex_count,
                                                  vertex_count_tile)
 from repro_torch.kernels.support_update import support_update
 from repro_torch.kernels.wedge_count import wedge_count, wedge_count_tile
@@ -251,27 +252,54 @@ def tf32x3_bound(a, b):
     return gamma * (a.double().abs() @ b.double().abs())
 
 
+# ragged on purpose: n off the 128-row tiles and 256-column squares
+# (n = 1 and 2 100 > 8 squares: a band's triangle and the squares right
+# of it), k off the 16-byte pitch and the 128-deep k tiles
 @pytest.mark.parametrize("n_u,n_v,m", [(40, 30, 200), (130, 70, 700),
-                                       (257, 129, 1500), (300, 500, 6000)])
+                                       (257, 129, 1500), (300, 500, 6000),
+                                       (1, 17, 10), (513, 1000, 20000),
+                                       (2100, 300, 30000)])
 def test_vertex_count_kernels_equal_plain(card, n_u, n_v, m):
     g = random_bipartite(n_u, n_v, m, seed=n_u + m)
     A = torch.from_numpy(g.adjacency()).to(card)
-    # unpadded: the kernel bounds-checks every load
+    # unpadded: TMA zero-fills the ragged edges
     got, n = _launched("vertex_count", lambda: vertex_count(A))
     assert n == 1 and torch.equal(got, ref.vertex_butterflies_ref(A))
     assert torch.equal(ops.vertex_butterflies(A),
                        counting.vertex_butterflies(A))
+    A8 = pack_s8(A)
+    assert torch.equal(A8, ref.pack_s8_ref(A)[0])
+    assert torch.equal(vertex_count(A8), got)
     for r0, r1 in ((0, n_u), (3, min(n_u, 131))):
         strip = A[r0:r1].contiguous()
         got, n = _launched("vertex_count_tile",
                            lambda: vertex_count_tile(strip, A))
         assert n == 1
         assert torch.equal(got, ref.vertex_count_tile_ref(strip, A))
+        # a strip as a row slice of the packed matrix
+        assert torch.equal(vertex_count_tile(A8[r0:r1], A8), got)
+    packs = _build.LAUNCHES["pack_s8"]
     tiled, n = _launched("vertex_count_tile",
                          lambda: ops.vertex_butterflies_tiled(A, 128))
     assert n == -(-n_u // 128)
+    assert _build.LAUNCHES["pack_s8"] - packs == 1  # A is packed once
     assert torch.equal(tiled, torch.round(
         counting.vertex_butterflies(A).double()).to(torch.int64))
+
+
+@pytest.mark.parametrize("bad", [2.0, 0.5, -1.0, float("nan")])
+def test_vertex_count_kernels_refuse_non_binary_input(card, bad):
+    A = torch.from_numpy(random_bipartite(70, 40, 300, seed=1).adjacency())
+    A = A.to(card)
+    A[5, 7] = bad
+    before = ops.launch_counts()
+    for call in (lambda: vertex_count(A), lambda: vertex_count_tile(A[:9], A),
+                 lambda: ops.vertex_butterflies(A),
+                 lambda: ops.vertex_butterflies_tiled(A, 128),
+                 lambda: pack_s8(A)):
+        with pytest.raises(ValueError, match="0/1 adjacency"):
+            call()
+    assert ops.launch_counts() == before  # refused before any product
 
 
 @pytest.mark.parametrize("M,N,K", [(1, 1, 1), (70, 257, 33), (128, 128, 128),
@@ -374,6 +402,11 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(card):
         vertex_count(x.double())
     with pytest.raises(ValueError, match="shape"):
         vertex_count_tile(x, torch.zeros((4, 64), device=card))
+    # packed operands: int8 rows of a multiple of 16, f32 and int8 not mixed
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vertex_count(torch.zeros((4, 20), dtype=torch.int8, device=card))
+    with pytest.raises(TypeError, match="both"):
+        vertex_count_tile(x, pack_s8(x))
     with pytest.raises(ValueError, match="shape"):
         matmul(x, x)
     u8 = torch.zeros((4, 128), dtype=torch.uint8, device=card)

@@ -104,6 +104,26 @@ def test_flash_plain_bf16_matches_jax():
                                np.asarray(pallas, np.float32), atol=BF16)
 
 
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 64), (8, 2, 32)])
+def test_flash_plain_bf16_rounds_as_pallas(h, kvh, d):
+    """In bf16 the plain version computes the Pallas kernel's function:
+    exp(s − max) rounded to bf16 before P·V, the row sum from the
+    unrounded values.  ‖Δ‖/‖ref‖ against the kernel in interpret mode
+    is 8.6·10⁻⁴ (D 64) and 8.1·10⁻⁴ (D 32, GQA: the CUDA-core kernel's
+    shape); keeping P in f32 gives 2.0·10⁻³ in both and fails."""
+    rng = np.random.default_rng(0)
+    q = _rand(rng, 1, h, 512, d)
+    k, v = _rand(rng, 1, kvh, 512, d), _rand(rng, 1, kvh, 512, d)
+    got = ops.flash_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                for x in (q, k, v)), causal=True)
+    rep = [np.repeat(x, h // kvh, axis=1) for x in (k, v)]
+    pallas = np.asarray(jops.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, *rep)), causal=True,
+        interpret=True), np.float32)
+    delta = np.linalg.norm(_np(got.float()) - pallas) / np.linalg.norm(pallas)
+    assert delta <= 1.5e-3, delta
+
+
 @pytest.mark.parametrize("h,kvh,offset", [(8, 2, None), (8, 1, None),
                                            (4, 4, 0), (8, 2, 5)])
 def test_flash_plain_gqa_and_offset_match_broadcast(h, kvh, offset):
