@@ -13,8 +13,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    (``-Xptxas=-v``, and any warning that it serialised a kernel's
    ``wgmma`` instructions), the warpgroup MMA instructions of each
    tensor-core kernel (``cuobjdump -sass``: HGMMA in ``matmul`` and the
-   bf16 ``flash_attention``, IGMMA in the int8 vertex counts; none
-   fails), and the card.
+   bf16 and 3xTF32 ``flash_attention`` kernels, IGMMA in the int8
+   vertex counts; none fails), and the card.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at the main path's shapes: ``fd_round_wing``/``fd_round_tip`` on the
    packed wing-60k / tip-1m partition stacks, round by round to the
@@ -66,7 +66,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 9. lm — the dense-family LM serving path and the ``flash_attention``
    kernel: the kernel against its plain version at ChatGLM3-6B's prefill
    shape, D = 64 (GQA), D = 256 (MQA), a ragged non-causal and an offset
-   case, each in bf16 (tensor cores) and f32 (CUDA cores), timed beside
+   case, each in bf16 (tensor cores) and f32 (3xTF32 on the tensor
+   cores; its ``split_kv`` pre-pass also timed alone, and the call held
+   against its 1xTF32, 3xTF32, FP32 and memory bounds), timed beside
    the plain version and SDPA; ChatGLM3-6B at full width and depth
    (random weights from a ``torch.Generator``), f32: ``prefill`` at b=4,
    s=2048 (28 kernel launches a call), its logits and ``forward``'s at
@@ -199,11 +201,12 @@ def ptxas_resources(log_text: str) -> list:
 
 # (source, kernel name fragment, instruction): each kernel of the
 # tensor-core designs and the warpgroup MMA its machine code must hold —
-# HGMMA accumulates in f32 (matmul's TF32, flash_attention's bf16), IGMMA
-# in s32 (the int8 vertex counts)
+# HGMMA accumulates in f32 (matmul's TF32, flash_attention's bf16 and
+# TF32), IGMMA in s32 (the int8 vertex counts)
 TENSOR_CORE_KERNELS = (("butterfly_count", "matmul_tf32x3_kernel", "HGMMA"),
                        ("butterfly_count", "vertex_count_kernel", "IGMMA"),
-                       ("flash_attention", "flash_tc_kernel", "HGMMA"))
+                       ("flash_attention", "flash_tc_kernel", "HGMMA"),
+                       ("flash_attention", "flash_tf32_kernel", "HGMMA"))
 
 
 def tensor_core_sass(paths: dict) -> dict:
@@ -253,9 +256,9 @@ def serialized_wgmma(log_text: str) -> list:
 
 
 def smem_bytes() -> dict:
-    """Dynamic shared memory of the three tensor-core kernels' blocks (and
-    of the CUDA-core attention kernel that f32 and D 32 take), from the
-    constants the launch functions use."""
+    """Dynamic shared memory of the tensor-core kernels' blocks (and of
+    the CUDA-core attention kernel that D 32 takes), from the constants
+    the launch functions use."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -272,7 +275,7 @@ def smem_bytes() -> dict:
     for d in (64, 128, 256):
         out[f"flash_attention bf16 D={d}"] = int(
             fa.flash_attention_smem_bytes(d, 1))
-    for d in (32, 128):
+    for d in (32, 64, 128, 256):
         out[f"flash_attention f32 D={d}"] = int(
             fa.flash_attention_smem_bytes(d, 0))
     return out
@@ -1245,11 +1248,16 @@ BF16_LOGIT_RTOL = 3e-2  # bf16 logits of two routes: ‖Δ‖/‖ref‖ (issue 1
 
 # (label, q shape, kv shape, causal, offset, dtype); the first is the row
 # of the kernels line (ChatGLM3-6B's prefill attention in bf16, on the
-# tensor cores), the f32 case of the same shapes beside it
+# tensor cores), the f32 case of the same shapes beside it.  Gemma-2B's
+# shape at the configs' max_seq holds the D 256 f32 route's longest P·V
+# chains; the reduced presets' prefill (D 32) holds the CUDA-core kernel.
 _ATTN_SHAPES = (
     ("chatglm3-6b prefill", (4, 32, 2048, 128), (4, 2, 2048, 128), True, None),
     ("D=64 GQA 32/4", (4, 32, 2048, 64), (4, 4, 2048, 64), True, None),
     ("D=256 MQA 8/1", (4, 8, 2048, 256), (4, 1, 2048, 256), True, None),
+    ("gemma-2b D=256 S=4096", (1, 8, 4096, 256), (1, 1, 4096, 256), True,
+     None),
+    ("reduced prefill D=32", (4, 4, 128, 32), (4, 2, 128, 32), True, None),
     ("ragged non-causal S=1500", (2, 16, 1500, 128), (2, 16, 1500, 128),
      False, None),
     ("offset sq=128 < sk=384", (4, 32, 128, 128), (4, 2, 384, 128), True,
@@ -1310,11 +1318,15 @@ def check_attention(cases, dev, reps):
     """Each case through ``ops.flash_attention`` against its plain
     version on the same inputs, timed with the plain version and, where
     sq == sk and the mask is causal, SDPA (top-left aligned, so only
-    there the same function).  Returns the kernels-line row (the first
-    case) with every case's numbers under ``cases``."""
+    there the same function).  An f32 case (3xTF32 on the tensor cores)
+    also times its ``split_kv`` pre-pass alone and carries the bounds of
+    one and of three TF32 products, of the FP32 CUDA cores and of memory.
+    Returns the kernels-line row (the first case) with every case's
+    numbers under ``cases``."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1346,30 +1358,45 @@ def check_attention(cases, dev, reps):
         ops_count, nbytes = attention_work(q, k, causal, offset)
         fp32 = ops_count / FP32_FLOP_PER_S * 1e3
         bf16 = ops_count / BF16_FLOP_PER_S * 1e3
+        tf32 = ops_count / TF32_FLOP_PER_S * 1e3
         mem = nbytes / HBM_BYTES_PER_S * 1e3
         row = dict(case=label, shape_q=list(q.shape), shape_kv=list(k.shape),
-                   dtype=dt, causal=causal, offset=offset, max_abs_err=err,
+                   dtype=dt, route=(fa.route(q.dtype, q.shape[-1])
+                                    if q.is_cuda else "plain version"),
+                   causal=causal, offset=offset, max_abs_err=err,
                    row_rel_err=row_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_fp32_ms=max(fp32, mem), bound_bf16_ms=max(bf16, mem),
-                   ops_per_call=ops_count, bytes_per_call=nbytes)
-        log(f"[smoke]   flash_attention {label}: max abs err {err:.2e} (tol "
-            f"{ATTN_ATOL[dt]}), worst row {row_err:.2e} relative (tol "
-            f"{ATTN_ROW_RTOL[dt]}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"SDPA {library_ms} ms; {ops_count / 1e9:.1f} G ops, "
-            f"{nbytes / 1e6:.1f} MB -> bound {row['bound_fp32_ms']:.3f} ms "
-            f"FP32, {row['bound_bf16_ms']:.3f} ms bf16 tensor cores")
+                   bound_hbm_ms=mem, ops_per_call=ops_count, bytes_per_call=nbytes)
+        if row["route"] == fa.ROUTES[2]:
+            # the split pass: k and v read once, their four planes written
+            split_ms = cuda_ms(lambda: fa.split_kv(k, v), reps)
+            row.update(bound_1xtf32_ms=max(tf32, mem),
+                       bound_3xtf32_ms=max(3 * tf32, mem), split_ms=split_ms,
+                       split_bytes=3 * 2 * k.numel() * k.element_size())
+        log(f"[smoke]   flash_attention {label} ({row['route']}): max abs err "
+            f"{err:.2e} (tol {ATTN_ATOL[dt]}), worst row {row_err:.2e} "
+            f"relative (tol {ATTN_ROW_RTOL[dt]}); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA {library_ms} ms; {ops_count / 1e9:.1f} "
+            f"G ops, {nbytes / 1e6:.1f} MB -> bound {row['bound_fp32_ms']:.3f} "
+            f"ms FP32, {row['bound_bf16_ms']:.3f} ms bf16 tensor cores, "
+            f"{mem:.3f} ms memory"
+            + (f"; 1xTF32 {row['bound_1xtf32_ms']:.3f} ms, 3xTF32 "
+               f"{row['bound_3xtf32_ms']:.3f} ms; split_kv {split_ms:.4f} ms "
+               f"({row['split_bytes'] / 1e6:.1f} MB)"
+               if "split_ms" in row else ""))
         out.append(row)
         del q, k, v
     first = out[0]
-    bound = first["bound_fp32_ms" if first["dtype"] == "float32"
-                  else "bound_bf16_ms"]
-    # the first case's shapes in each dtype (bf16 on the tensor cores, f32
-    # on the CUDA cores), each with the bound of the units it runs on
+    bound = _design_bound(first)
+    # the first case's shapes in each dtype (bf16 and 3xTF32 on the tensor
+    # cores), each with the bound of its design, and the rest beside it
     by_dtype = {r["dtype"]: dict(
         ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
         max_abs_err=r["max_abs_err"], row_rel_err=r["row_rel_err"],
-        bound_ms=r["bound_fp32_ms" if r["dtype"] == "float32"
-                   else "bound_bf16_ms"])
+        route=r["route"], bound_ms=_design_bound(r),
+        **{k: r[k] for k in ("bound_1xtf32_ms", "bound_3xtf32_ms",
+                             "bound_fp32_ms", "bound_bf16_ms", "bound_hbm_ms",
+                             "split_ms", "split_bytes") if k in r})
         for r in out if (r["shape_q"], r["shape_kv"], r["causal"],
                          r["offset"]) == (first["shape_q"],
                                           first["shape_kv"],
@@ -1385,6 +1412,16 @@ def check_attention(cases, dev, reps):
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True, enable_gqa=True), sq == sk only",
                 calls_checked=len(out), cases=out)
+
+
+def _design_bound(row) -> float:
+    """The bound of the units an attention case runs on, by its route:
+    three TF32 products for the f32 tensor-core kernel, the bf16 tensor
+    cores for the bf16 one, the FP32 CUDA cores for D 32 in either
+    dtype."""
+    return row[{"3xtf32 tensor cores": "bound_3xtf32_ms",
+                "bf16 tensor cores": "bound_bf16_ms"}.get(row["route"],
+                                                          "bound_fp32_ms")]
 
 
 def close_logits(label, got, want, atol=LOGIT_ATOL) -> float:

@@ -1,24 +1,26 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (matmul and the int8 vertex counts in butterfly_count.cu, the bf16
-// path of flash_attention.cu):
+// (matmul and the int8 vertex counts in butterfly_count.cu, the bf16 and
+// 3xTF32 paths of flash_attention.cu):
 // TMA tensor maps, mbarriers, bulk tensor copies and warpgroup matrix
 // multiplies (wgmma).  Plain PTX, no CUTLASS.
 //
 // Host side.  cuTensorMapEncodeTiled is a driver API function; it is
 // fetched once through cudaGetDriverEntryPointByVersion, so the shared
 // libraries link only the CUDA runtime (static, nvcc's default), never
-// libcuda.  Every map here is tiled with a 128-byte swizzle: the box's
-// inner dimension is exactly 128 bytes (32 f32, 64 bf16 or 128 int8
-// values), TMA writes the box row after row, 128 bytes a row, and XORs
-// the 16-byte chunk index of row r with r % 8.  Coordinates past a dimension's end
-// read as zero, which is how the kernels handle ragged edges.
+// libcuda.  The maps are tiled with a 128-byte swizzle: the box's inner
+// dimension is exactly 128 bytes (32 f32, 64 bf16 or 128 int8 values),
+// TMA writes the box row after row, 128 bytes a row, and XORs the 16-byte
+// chunk index of row r with r % 8.  One map (the 3xTF32 attention's 16-key
+// value tiles) takes the 64-byte swizzle instead: 64-byte rows, chunk
+// index XOR (r / 2) % 4.  Coordinates past a dimension's end read as
+// zero, which is how the kernels handle ragged edges.
 //
 // Device side.  A wgmma operand in shared memory is named by a 64-bit
-// descriptor (desc_sw128): the start address, the byte stride between
-// groups of 8 rows (SBO) and, for MN-major operands, between 64-wide
-// column chunks (LBO), and the swizzle mode.  Tiles start on 1024-byte
-// boundaries (one swizzle atom of 8 x 128 bytes), so a K-major operand
-// steps through its 128-byte rows by adding 32 bytes to the start
+// descriptor (desc_sw128, desc_sw64): the start address, the byte stride
+// between groups of 8 rows (SBO) and, for MN-major operands, between
+// 64-wide column chunks (LBO), and the swizzle mode.  Tiles start on
+// 1024-byte boundaries (one swizzle atom of 8 x 128 bytes), so a K-major
+// operand steps through its rows by adding 32 bytes to the start
 // address.  The wgmma_* wrappers issue one asynchronous product of a
 // 64-row tile; wgmma_fence / wgmma_commit / wgmma_wait order them with
 // the registers around them.
@@ -49,15 +51,17 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // A tiled, 128-byte-swizzled map of a `rank`-dimensional tensor at `ptr`:
 // dims[0] is the contiguous dimension, strides[i] the byte stride of
 // dimension i + 1 (a multiple of 16), box[i] the tile extent (box[0] *
-// element size == 128).  Out-of-range elements read as zero.
+// element size == 128, or 64 with `swizzle` CU_TENSOR_MAP_SWIZZLE_64B).
+// Out-of-range elements read as zero.
 inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
                                 const void* ptr, const uint64_t* dims, const uint64_t* strides,
-                                const uint32_t* box) {
+                                const uint32_t* box,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides,
-                            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -161,6 +165,24 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes
   return d;
 }
 
+// The same for a 64-byte-swizzled K-major operand (bits 62-63 = 2): rows
+// of 64 bytes, SBO = 8 rows = 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;
+  return d;
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads
+// by the async proxy (wgmma operands, TMA): each writer fences, then a
+// barrier, then the wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -220,6 +242,11 @@ __device__ __forceinline__ float tf32_rna(float x) {
 // Accumulator layout of every wgmma below, for a 64-row tile and thread
 // t of the warpgroup (warp w = t / 32, lane l = t % 32): d[4j + e] is
 // row 16w + l/4 + 8 (e / 2), column 8j + 2 (l % 4) + e % 2.
+//
+// A tf32 A operand in registers (wgmma_tf32_rs_*), m64 x k8: a[e] is row
+// 16w + l/4 + 8 (e % 2), column l % 4 + 4 (e / 2) — not the accumulator's
+// column pairs, so an accumulator fed back as A needs its k index
+// permuted (flash_attention.cu does it on the other operand).
 
 // d[64] (+)= A * B, A and B from shared memory (descriptors); scale_d = 0
 // overwrites d.  m64n128k8, tf32.tf32.
@@ -247,6 +274,59 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a, uint
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[8] (+)= A * B, A and B from shared memory (descriptors), both
+// K-major; scale_d = 0 overwrites d.  m64n16k8, tf32.tf32.
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], uint64_t a, uint64_t b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[16] (+)= A * B, A and B from shared memory (descriptors), both
+// K-major; scale_d = 0 overwrites d.  m64n32k8, tf32.tf32.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[32] (+)= A * B, A and B from shared memory (descriptors), both
+// K-major; scale_d = 0 overwrites d.  m64n64k8, tf32.tf32.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -440,3 +520,99 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_
         "+r"(d[126]), "+r"(d[127])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+
+// d[32] (+)= A * B, A (four tf32 registers, wgmma_tf32_rs_* layout) from
+// registers, B from shared memory, K-major.  m64n64k8, tf32 -> f32.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[64] (+)= A * B, A (four tf32 registers, wgmma_tf32_rs_* layout) from
+// registers, B from shared memory, K-major.  m64n128k8, tf32 -> f32.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[128] (+)= A * B, A (four tf32 registers, wgmma_tf32_rs_* layout) from
+// registers, B from shared memory, K-major.  m64n256k8, tf32 -> f32.
+__device__ __forceinline__ void wgmma_tf32_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+

@@ -27,6 +27,7 @@ __all__ = [
     "edge_wedge_matrix_ref",
     "bloom_update_ref",
     "flash_attention_ref",
+    "split_kv_ref",
 ]
 
 BIG = torch.iinfo(torch.int32).max
@@ -259,3 +260,36 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale=None,
             p = torch.where(seen.any(dim=1)[:, None], p, 0.0)
         out = matmul_f32(p.reshape(B, KVH, (H // KVH) * sq, sk), v)
     return out.reshape(B, H, sq, v.shape[-1]).to(q.dtype)
+
+
+# Position p of each group of 8 keys in ``split_kv``'s value planes holds
+# key V_KEY_ORDER[p]: the 3×TF32 kernel feeds P as wgmma's A operand,
+# whose columns c and c + 4 hold what its score accumulator holds as keys
+# 2c and 2c + 1 (csrc/hopper.cuh), so v's keys are stored in that order.
+V_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _tf32_planes(x: torch.Tensor) -> torch.Tensor:
+    """[2, ...]: hi = x rounded to TF32 (10 mantissa bits, to nearest,
+    ties away from zero: ``cvt.rna.tf32.f32``) and lo = rna(x − hi), 0
+    where hi is not finite."""
+    def rna(t):
+        r = ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF)
+        return torch.where(torch.isnan(t), t, r.view(torch.float32))
+
+    hi = rna(x)
+    return torch.stack([hi, torch.where(torch.isfinite(hi), rna(x - hi), 0.0)])
+
+
+def split_kv_ref(k: torch.Tensor, v: torch.Tensor):
+    """``split_kv``'s planes of f32 k, v [B, KVH, Sk, D]: kp [2, B, KVH,
+    Sk, D] and vp [2, B, KVH, D, Skp] (v transposed, Skp = Sk rounded up
+    to a multiple of 8, keys in ``V_KEY_ORDER`` within each group of 8,
+    zero past Sk)."""
+    B, KVH, sk, D = k.shape
+    skp = -(-sk // 8) * 8
+    vt = torch.zeros((B, KVH, D, skp), dtype=torch.float32, device=v.device)
+    vt[..., :sk] = v.float().transpose(-1, -2)
+    order = torch.tensor(V_KEY_ORDER, device=v.device)
+    vt = vt.reshape(B, KVH, D, skp // 8, 8)[..., order].reshape(B, KVH, D, skp)
+    return _tf32_planes(k.float()), _tf32_planes(vt)

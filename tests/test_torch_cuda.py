@@ -20,7 +20,7 @@ from repro_torch.core.beindex import build_beindex
 from repro_torch.core.distributed import (pack_fd_partitions_csr,
                                           pack_fd_partitions_tip_csr)
 from repro_torch.core.graph import powerlaw_bipartite, random_bipartite
-from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import _build, flash_attention, ops, ref
 from repro_torch.kernels.bloom_update import bloom_update
 from repro_torch.kernels.butterfly_count import (matmul, pack_s8,
                                                  vertex_count,
@@ -441,6 +441,15 @@ def test_engine_golden_cells_on_the_card(card):
             assert getattr(res.stats, f) == goldens[key][f], (key, f)
 
 
+# the kernel each (dtype, head dim) takes: the launch function's own
+# route query (flash_attention_route), not a timing
+def _route(dtype, d):
+    if d == 32:
+        return "cuda cores"
+    return ("bf16 tensor cores" if dtype == torch.bfloat16
+            else "3xtf32 tensor cores")
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-3),
                                         (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("qs,ks,causal,offset", [
@@ -450,9 +459,24 @@ def test_engine_golden_cells_on_the_card(card):
     ((2, 4, 64, 32), (2, 2, 192, 32), True, None),      # offset sk - sq
     ((2, 4, 96, 128), (2, 2, 160, 128), True, 0),       # explicit offset
     ((1, 2, 128, 64), (1, 2, 64, 64), True, None),      # rows that see no key
+    ((2, 32, 512, 128), (2, 2, 512, 128), True, None),  # prefill-shaped, GQA 16:1
+    ((2, 8, 384, 64), (2, 1, 384, 64), True, None),     # MQA, D 64
+    ((1, 8, 320, 256), (1, 1, 320, 256), True, None),   # MQA, D 256
+    ((1, 8, 4096, 256), (1, 1, 4096, 256), True, None),  # Gemma-2B at max_seq
+    ((1, 4, 1500, 128), (1, 4, 1500, 128), False, None),  # ragged, non-causal
+    ((1, 4, 700, 64), (1, 2, 1001, 64), False, None),   # ragged, sq != sk
+    ((1, 4, 300, 256), (1, 2, 333, 256), False, None),  # ragged, D 256
+    ((2, 8, 128, 128), (2, 2, 384, 128), True, None),   # offset: sq 128 < sk 384
+    ((1, 4, 96, 256), (1, 2, 160, 256), True, 0),       # explicit offset, D 256
+    ((1, 4, 160, 64), (1, 4, 160, 64), True, -40),      # rows 0-39 see no key
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, atol, qs, ks,
                                               causal, offset):
+    """Each dtype at each head dim takes its kernel (``_route``), one
+    launch a call, within the JAX package's tolerance of the plain
+    version and every row within ``F32_ROW_RTOL`` / ``BF16_ROW_RTOL``;
+    rows that see no key are exactly 0."""
+    assert flash_attention.route(dtype, qs[3]) == _route(dtype, qs[3])
     g = torch.Generator(device=card).manual_seed(qs[2] + ks[2])
     q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
                for s in (qs, ks, ks))
@@ -463,19 +487,29 @@ def test_flash_attention_kernel_matches_plain(card, dtype, atol, qs, ks,
     want = ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert _worst_row_rel(got, want) <= (
+        F32_ROW_RTOL if dtype == torch.float32 else BF16_ROW_RTOL)
+    if causal:
+        off = ks[2] - qs[2] if offset is None else offset
+        blind = torch.arange(qs[2], device=card) + off < 0
+        assert not got[:, :, blind].any()
 
 
-def test_flash_attention_kernel_reads_strided_heads(card):
-    """The model's q/k/v are transposed views of [b, s, heads, d]."""
-    g = torch.Generator(device=card).manual_seed(1)
-    x = torch.randn((2, 96, 8, 64), generator=g, device=card)
-    kv = torch.randn((2, 2, 96, 2, 64), generator=g, device=card)
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_attention_kernel_reads_strided_heads(card, d):
+    """The model's q/k/v are transposed views of [b, s, heads, d]: in
+    f32, q through the 3×TF32 kernel's 4-D tensor map and k, v through
+    its pre-pass (the CUDA-core kernel at D 32)."""
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    x = torch.randn((2, 200, 8, d), generator=g, device=card)
+    kv = torch.randn((2, 2, 200, 2, d), generator=g, device=card)
     q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
-    assert not q.is_contiguous()
+    assert not q.is_contiguous() and not v.is_contiguous()
     got = ops.flash_attention(q, k, v, causal=True, offset=0)
     want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True, offset=0)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    assert _worst_row_rel(got, want) <= F32_ROW_RTOL
 
 
 @pytest.mark.parametrize("qs,ks,causal,offset", [
@@ -519,6 +553,9 @@ def test_flash_attention_bf16_tensor_cores_match_plain(card, qs, ks, causal,
 # value shrinks as it sees more keys, so an absolute tolerance alone
 # would pass a wrong late row.
 BF16_ROW_RTOL = 1e-2
+# and in f32 (chip_smoke.py's gate; f32 rounds at 2⁻²⁴, the 3×TF32
+# products keep about 2⁻²² of each term)
+F32_ROW_RTOL = 1e-4
 
 
 def _worst_row_rel(got, want) -> float:
@@ -543,6 +580,34 @@ def test_flash_attention_bf16_reads_strided_heads(card, d):
                                    v.contiguous(), causal=True, offset=0)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
     assert _worst_row_rel(got, want) <= BF16_ROW_RTOL
+
+
+@pytest.mark.parametrize("sk,d", [(8, 64), (203, 128), (1001, 256)])
+def test_split_kv_kernel_equals_plain(card, sk, d):
+    """The 3×TF32 route's pre-pass, bit for bit its plain version (the
+    planes, v transposed in ``ref.V_KEY_ORDER``, zero past Sk), on
+    strided views; one launch a call."""
+    g = torch.Generator(device=card).manual_seed(sk)
+    kv = torch.randn((2, 2, sk, 3, d), generator=g, device=card)
+    k, v = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    before = _build.LAUNCHES["split_kv"]
+    got = flash_attention.split_kv(k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["split_kv"] == before + 1
+    for a, b in zip(got, ref.split_kv_ref(k.cpu(), v.cpu())):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_flash_attention_routes(card):
+    """The launch function's split: bf16 and f32 at D 64/128/256 on the
+    tensor cores, D 32 on the CUDA cores, in both dtypes."""
+    for d in (64, 128, 256):
+        assert flash_attention.route(torch.bfloat16, d) == "bf16 tensor cores"
+        assert flash_attention.route(torch.float32, d) == "3xtf32 tensor cores"
+    for dt in (torch.float32, torch.bfloat16):
+        assert flash_attention.route(dt, 32) == "cuda cores"
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.route(torch.float32, 48)
 
 
 def test_flash_attention_refusals(card):
