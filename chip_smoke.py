@@ -31,7 +31,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
 4. tip-1m and 5. wing-60k — the CLI's main path (``repro_torch.launch.
    peel``: the fused device driver, then vmapped and ``--use-pallas``),
    θ and PeelStats held to the JAX package's values in
-   ``tests/goldens/torch_fullsize.json``.
+   ``tests/goldens/torch_fullsize.json``.  tip-1m's default run again
+   with ``--trace`` (and ``--emit-hierarchy``): θ, stats and launch
+   counts equal to the untraced run, ``cd.round`` spans == ρ_cd and
+   ``fd.round`` events == ρ_fd_total, the seconds of each span category
+   and the peel's seconds traced against untraced.
 6. fd-drivers — from one CD per graph, Phase 2 under every FD driver
    (fused and unfused device/vmapped, and the kernel-free host driver),
    each held to the same JAX values and timed.
@@ -81,6 +85,18 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    package's logits in ``tests/goldens/torch_lm.json`` (recorded by
    ``tests/goldens/record_torch_lm.py``); and ``python -m
    repro_torch.launch.serve --arch chatglm3_6b`` in its own process.
+10. stream — the streaming updater (``repro_torch.streaming``): the 60k
+   graph as wing (csr, device FD driver) and as tip (the same, CD through
+   ``wedge_count``, which must launch in every epoch), 4 epochs of 512
+   random events each, every epoch (and the initial peel) held to a
+   from-scratch re-peel and rebuild on the card — θ, partition, ⋈init,
+   ranges, PeelStats and the 15 packed-forest arrays, density allclose —
+   and to the JAX package's digests in ``tests/goldens/torch_stream.json``
+   (recorded by ``tests/goldens/record_torch_stream.py``); tip-1m for
+   ``STREAM_1M["epochs"]`` epochs of 2 048 events, θ and stats held every
+   epoch, the forest at the last, each epoch's report beside the
+   re-peel's seconds; then ``python -m repro_torch.launch.stream
+   --dryrun`` in its own process.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -628,16 +644,72 @@ def hold(label, got, want, stats=STAT_FIELDS) -> None:
 
 
 def main_path(fullsize, name, g, flags, launches, dev):
-    """One CLI run on ``g``; held to the recorded JAX values."""
+    """One CLI run on ``g``; held to the recorded JAX values.  Returns
+    (launch counts, seconds, the CLI's stats row)."""
     want = fullsize[name]
-    got, counts, dt, _ = cli_peel(
+    got, counts, dt, out = cli_peel(
         g, ["--kind", want["kind"], "--parts", str(want["P"]), *flags], dev)
     hold(f"{name} {flags}", got, want)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     log(f"[smoke]   {name} {' '.join(flags) or '(defaults)'}: matches the "
         f"JAX package in {dt:.1f} s; launches {counts}")
-    return counts, dt
+    return counts, dt, out
+
+
+# span categories whose seconds split a traced peel run (nested: peel ⊃
+# cd ⊃ cd.round, peel ⊃ fd ⊃ fd.launch); the hierarchy spans are split
+# by name (hierarchy.build ⊃ hierarchy.labels, hierarchy.node_stats)
+SPAN_CATS = ("peel", "cd", "cd.round", "fd", "fd.launch")
+
+
+def traced_main_path(fullsize, name, g, untraced, launches, dev, tmp):
+    """The CLI's default run of ``name`` again with ``--trace`` (and
+    ``--emit-hierarchy``, for the ``hierarchy.*`` spans): θ and stats
+    equal to the golden (so to the untraced run), the same kernel
+    launches, ``cd.round`` spans == ρ_cd and ``fd.round`` events ==
+    ρ_fd_total.  ``untraced`` is ``main_path``'s return for the same
+    flags.  Returns the seconds of each span category, by span name
+    under ``hierarchy``, and the peel's seconds traced and untraced."""
+    want = fullsize[name]
+    path = os.path.join(tmp, f"{name}.trace.json")
+    art = os.path.join(tmp, f"{name}.traced.npz")
+    got, counts, dt, out = cli_peel(
+        g, ["--kind", want["kind"], "--parts", str(want["P"]), "--trace",
+            path, "--emit-hierarchy", art], dev)
+    hold(f"{name} --trace", got, want)
+    expect(f"{name} --trace", "launches", counts, untraced[0])
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    s = out["result"].stats
+    tracer = out["trace"]
+    tl = out["result"].timeline
+    spans = (tracer.count("cd.round", ph="X"), tracer.count("fd.round",
+                                                            ph="i"))
+    expect(f"{name} --trace", "(cd.round spans, fd.round events)", spans,
+           (s.rho_cd, s.rho_fd_total))
+    expect(f"{name} --trace", "timeline (cd, fd) rounds",
+           (tl.cd_rounds, tl.fd_rounds_total()), spans)
+    secs = {cat: round(sum(e["dur"] for e in tracer.spans(cat, ph="X"))
+                       / 1e6, 4) for cat in SPAN_CATS}
+    for e in tracer.spans("hierarchy", ph="X"):
+        key = e["name"]
+        secs[key] = round(secs.get(key, 0.0) + e["dur"] / 1e6, 4)
+    with open(path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    info = dict(span_seconds=secs, events=n_events,
+                timeline=tl.summary(), seconds_traced=dt,
+                peel_traced=out["seconds"]["peel"],
+                peel_untraced=untraced[2]["seconds"]["peel"],
+                untraced=untraced[1])
+    log(f"[smoke]   {name} --trace --emit-hierarchy: matches the JAX "
+        f"package and the untraced run (launches {counts}); "
+        f"{n_events} trace events, cd.round {spans[0]} = rho_cd, fd.round "
+        f"{spans[1]} = rho_fd_total; seconds by span category {secs}; "
+        f"peel {info['peel_traced']:.3f} s traced against "
+        f"{info['peel_untraced']:.3f} s untraced (whole run {dt:.1f} s "
+        f"with the hierarchy, {untraced[1]:.1f} s untraced without)")
+    return info
 
 
 # ---------------------------------------------------------------------
@@ -1811,16 +1883,20 @@ def main() -> int:
         engines = json.load(f)
     with open(os.path.join(ROOT, "tests", "goldens", "torch_lm.json")) as f:
         lm_golden = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_stream.json")) as f:
+        streams = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        return run_phases(fullsize, realdata, engines, lm_golden, dev, smi,
-                          tmp)
+        return run_phases(fullsize, realdata, engines, lm_golden, streams, dev,
+                          smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
+def run_phases(fullsize, realdata, engines, lm_golden, streams, dev, smi,
+               tmp) -> int:
     import torch
 
     with Phase("1-setup"):
@@ -1854,30 +1930,33 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
     launches: dict = {}
     with Phase("4-tip-1m"):
         g = prepare(fullsize, "tip-1m", dev, cache)["g"]
-        c, _ = main_path(fullsize, "tip-1m", g, [], launches, dev)
-        if c["fd_round_tip"] == 0:
+        base = main_path(fullsize, "tip-1m", g, [], launches, dev)
+        if base[0]["fd_round_tip"] == 0:
             raise AssertionError("tip-1m default path launched no "
                                  "fd_round_tip")
         main_path(fullsize, "tip-1m", g, ["--fd-driver", "vmapped"],
                   launches, dev)
+        trace_info = traced_main_path(fullsize, "tip-1m", g, base, launches,
+                                      dev, tmp)
 
     with Phase("5-wing-60k"):
         g = prepare(fullsize, "wing-60k", dev, cache)["g"]
-        c, _ = main_path(fullsize, "wing-60k", g, ["--engine", "csr"],
-                         launches, dev)
+        c, _, _ = main_path(fullsize, "wing-60k", g, ["--engine", "csr"],
+                            launches, dev)
         if c["fd_round_wing"] == 0:
             raise AssertionError("wing-60k default path launched no "
                                  "fd_round_wing")
         main_path(fullsize, "wing-60k", g,
                   ["--engine", "csr", "--fd-driver", "vmapped"], launches,
                   dev)
-        c, _ = main_path(fullsize, "wing-60k", g,
-                         ["--engine", "csr", "--use-pallas"], launches, dev)
+        c, _, _ = main_path(fullsize, "wing-60k", g,
+                            ["--engine", "csr", "--use-pallas"], launches,
+                            dev)
         if c["support_update"] == 0:
             raise AssertionError("--use-pallas wing launched no "
                                  "support_update")
-        c, _ = main_path(fullsize, "tip-60k", g, ["--use-pallas"], launches,
-                         dev)
+        c, _, _ = main_path(fullsize, "tip-60k", g, ["--use-pallas"],
+                            launches, dev)
         if c["wedge_count"] == 0:
             raise AssertionError("--use-pallas tip launched no wedge_count")
 
@@ -1895,6 +1974,9 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
 
     with Phase("9-lm"):
         rows["flash_attention"], lm_info = phase_lm(lm_golden, dev, launches)
+
+    with Phase("10-stream"):
+        stream_info = phase_stream(streams, fullsize, dev, launches)
 
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
@@ -1919,13 +2001,228 @@ def run_phases(fullsize, realdata, engines, lm_golden, dev, smi, tmp) -> int:
     log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
-                        engine_seconds=engine_seconds, lm=lm_info)))
+                        engine_seconds=engine_seconds, lm=lm_info,
+                        traced_tip_1m=trace_info, stream=stream_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------
+# phase 10: the streaming updater
+# ---------------------------------------------------------------------
+# the packed-forest arrays an incremental epoch must reproduce
+FOREST_FIELDS = ("node_level", "parent", "entity_node", "member_off",
+                 "member_ids", "child_off", "child_ids", "tin", "tout",
+                 "ent_order", "estart", "eend", "node_m", "node_nu",
+                 "node_nv")
+# tip-1m's stream: epochs, events an epoch, seed of epoch 0's events (one
+# epoch: an initial peel, an epoch and their re-peels take ~160 s)
+STREAM_1M = dict(epochs=1, batch=2048, event_seed=2000)
+
+
+def sha16(a) -> str:
+    """The stream goldens' digest: sha256 of the int64 bytes, 16 hex."""
+    return sha_int64(a)[:16]
+
+
+def forest_sha(h) -> str:
+    """The stream goldens' forest digest (every packed-forest array)."""
+    import numpy as np
+
+    hsh = hashlib.sha256()
+    for f in FOREST_FIELDS:
+        hsh.update(f.encode())
+        hsh.update(np.ascontiguousarray(getattr(h, f)).astype(
+            np.int64, copy=False).tobytes())
+    return hsh.hexdigest()[:16]
+
+
+def stream_record(st, rep) -> dict:
+    """One epoch's digests, in the format of ``torch_stream.json``."""
+    return dict(
+        epoch=rep.epoch, net=[rep.n_inserts, rep.n_deletes], m=int(st.g.m),
+        theta_sha=sha16(st.result.theta), part_sha=sha16(st.result.part),
+        sup_init_sha=sha16(st.result.support_init),
+        stats=st.result.stats.as_dict(), forest_sha=forest_sha(st.hierarchy),
+        partitions_dirty=rep.partitions_dirty, levels_dirty=rep.levels_dirty)
+
+
+def scratch_peel(g, cfg, dev):
+    """The from-scratch re-peel of the materialized graph that a stream
+    epoch is held to: the same engine, FD driver and kernel route."""
+    from repro_torch.core.peel import tip_decomposition, wing_decomposition
+
+    kw = dict(P=cfg.P, engine=cfg.engine, fd_driver=cfg.fd_driver,
+              use_pallas=cfg.use_pallas, device=dev)
+    if cfg.kind == "wing":
+        return wing_decomposition(g, **kw)
+    return tip_decomposition(g, side=cfg.side, **kw)
+
+
+def hold_scratch(label, st, ref, h_ref=None) -> None:
+    """θ, partition, ⋈init, ranges and the PeelStats row equal to the
+    re-peel; with ``h_ref`` every forest array too (density allclose)."""
+    import numpy as np
+
+    res = st.result
+    for f in ("theta", "part", "support_init", "ranges"):
+        if not np.array_equal(getattr(res, f), getattr(ref, f)):
+            raise AssertionError(f"{label}: {f} differs from the "
+                                 "from-scratch re-peel")
+    expect(label, "stats", res.stats.as_dict(), ref.stats.as_dict())
+    if h_ref is not None:
+        h = st.hierarchy
+        bad = [f for f in FOREST_FIELDS
+               if not np.array_equal(getattr(h, f), getattr(h_ref, f))]
+        if bad or not np.allclose(h.density, h_ref.density):
+            raise AssertionError(f"{label}: forest fields {bad} (or "
+                                 "density) differ from the rebuild")
+
+
+def span_ms(fn):
+    """Run ``fn()`` with the obs layer on; returns (its result, the
+    milliseconds of its spans by name, ``fd.partition[i]`` summed as
+    ``fd.launch``)."""
+    from repro_torch import obs
+
+    tracer = obs.enable()
+    try:
+        res = fn()
+    finally:
+        obs.disable()
+    ms: dict = {}
+    for e in tracer.spans(ph="X"):
+        key = "fd.launch" if e["cat"] == "fd.launch" else e["name"]
+        ms[key] = round(ms.get(key, 0.0) + e["dur"] / 1e3, 1)
+    return res, ms
+
+
+def stream_case(label, g, cfg, epochs, batch, event_seed, dev, launches,
+                want=None, kernel=None, forest_every=True) -> dict:
+    """A stream of ``epochs`` micro-epochs of ``batch`` random events on
+    ``g``.  Launch counts are zeroed before each epoch and read after it;
+    every epoch (and, with ``forest_every``, the initial peel) is held to
+    a from-scratch re-peel on the card, its forest too where
+    ``forest_every`` or at the last epoch, and to the JAX package's
+    digests ``want``; ``kernel`` must launch in every epoch.  The stream's
+    own epochs run with the obs layer on (a few spans an epoch; no FD
+    rings, since the stream installs no timeline collector), the
+    re-peels with it off.  Returns the seconds, the per-epoch reports and
+    their span milliseconds."""
+    from repro_torch.hierarchy import build_hierarchy
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import StreamState, make_random_events
+
+    def rebuild(st, ref):
+        return build_hierarchy(st.g, ref, kind=cfg.kind, side=cfg.side,
+                               device=dev)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, ms = span_ms(lambda: StreamState.initial(g, cfg, device=dev))
+    sync(dev)
+    out = dict(initial_s=round(time.perf_counter() - t0, 3), initial_ms=ms,
+               epochs=[])
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    if forest_every:
+        ref = scratch_peel(st.g, cfg, dev)
+        hold_scratch(f"{label} initial", st, ref, rebuild(st, ref))
+    log(f"[smoke]   {label} stream initial peel + forest in "
+        f"{out['initial_s']:.2f} s ({st.hierarchy.n_nodes} nodes, "
+        f"{int(st.hierarchy.levels.size)} levels); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for e in range(epochs):
+        events = make_random_events(st.g, batch, seed=event_seed + e)
+        ops.reset_launch_counts()
+        rep, ms = span_ms(lambda: st.apply_epoch(events))
+        sync(dev)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if kernel is not None and counts[kernel] == 0:
+            raise AssertionError(f"{label} epoch {rep.epoch} launched no "
+                                 f"{kernel}")
+        t1 = time.perf_counter()
+        ref = scratch_peel(st.g, cfg, dev)
+        sync(dev)
+        scratch_s = time.perf_counter() - t1
+        forest = forest_every or e == epochs - 1
+        hold_scratch(f"{label} epoch {rep.epoch}", st, ref,
+                     rebuild(st, ref) if forest else None)
+        if want is not None:
+            expect(label, f"epoch {rep.epoch} digests", stream_record(st, rep),
+                   want[e])
+        row = dict(rep.as_dict(), scratch_peel_s=round(scratch_s, 3),
+                   forest_held=forest, span_ms=ms,
+                   launches={k: v for k, v in counts.items() if v})
+        out["epochs"].append(row)
+        log(f"[smoke]   {label} epoch {rep.epoch}: net +{rep.n_inserts}/"
+            f"-{rep.n_deletes}, dirty {rep.partitions_dirty}/{rep.p_eff} "
+            f"partitions, {rep.levels_dirty}/{rep.levels_total} levels; "
+            f"repair {rep.repair_ms:.1f} ms, epoch {rep.epoch_ms:.1f} ms, "
+            f"scratch re-peel {scratch_s * 1e3:.1f} ms; equal to the "
+            f"re-peel (θ, stats{', forest' if forest else ''})"
+            f"{' and the JAX digests' if want is not None else ''}; "
+            f"launches {row['launches']}; span ms {ms}")
+    return out
+
+
+def stream_dryrun(dev) -> float:
+    """``python -m repro_torch.launch.stream --dryrun`` in its own
+    process; returns its seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.stream", "--dryrun",
+         "--device", dev], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if (out.returncode != 0 or "incremental maintenance = from-scratch"
+            not in out.stdout):
+        raise AssertionError(f"launch.stream --dryrun failed "
+                             f"(rc {out.returncode}): {out.stdout[-2000:]}"
+                             f"{out.stderr[-3000:]}")
+    for line in out.stdout.splitlines():
+        log(f"[smoke]   {line}")
+    return round(dt, 3)
+
+
+def phase_stream(streams, fullsize, dev, launches) -> dict:
+    """The streaming updater on the card: the 60k graph as wing and as
+    tip (``wedge_count`` in every epoch), each epoch held to a re-peel
+    and to ``torch_stream.json``; tip-1m; then ``--dryrun``."""
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.streaming import StreamConfig
+
+    info = {}
+    g = powerlaw_bipartite(**streams["graph"])
+    expect("stream 60k", "edges sha256", cli_sha(g),
+           fullsize["wing-60k"]["edges_sha256"])
+    for name, conf in streams["config"].items():
+        cfg = StreamConfig(kind=conf["kind"], engine="csr", P=streams["P"],
+                           fd_driver="device", use_pallas=conf["use_pallas"])
+        info[name] = stream_case(
+            name, g, cfg, streams["epochs"], streams["batch"],
+            streams["event_seed"], dev, launches,
+            want=streams["cases"][name],
+            kernel="wedge_count" if cfg.kind == "tip" else None)
+    want = fullsize["tip-1m"]
+    g = powerlaw_bipartite(**want["graph"])
+    cfg = StreamConfig(kind="tip", engine="csr", P=want["P"],
+                       fd_driver="device")
+    info["tip-1m"] = stream_case("tip-1m", g, cfg, STREAM_1M["epochs"],
+                                 STREAM_1M["batch"], STREAM_1M["event_seed"],
+                                 dev, launches, forest_every=False)
+    info["dryrun_s"] = stream_dryrun(dev)
+    return info
 
 
 def cli_sha(g) -> str:

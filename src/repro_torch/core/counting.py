@@ -25,6 +25,7 @@ import os
 
 import torch
 
+from .. import obs
 from ..kernels import ref
 from ..kernels.ref import matmul_f32
 
@@ -72,9 +73,12 @@ def vertex_butterflies(A: torch.Tensor, block: int = 512) -> torch.Tensor:
     ``REPRO_DENSE_MAX_ELEMS`` elements, the reduction routes itself
     through the row-blocked path (:func:`vertex_butterflies_blocked`,
     O(block·n) peak) instead of failing; W is only ever consumed as row
-    sums here, so the tiling is exact and invisible to callers."""
+    sums here, so the tiling is exact and invisible to callers.  An obs
+    ``counting.tiles`` counter records when it fires."""
     n = A.shape[0]
     if n * n > _dense_limit():
+        obs.counter("counting.tiles", dict(
+            tiles=-(-n // block), block=block, rows=n))
         return vertex_butterflies_blocked(A, block=block)
     return ref.vertex_butterflies_ref(A)
 

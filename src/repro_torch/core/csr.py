@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops as kops
 from .graph import BipartiteGraph
 
@@ -244,6 +245,9 @@ def tiled_butterfly_init(
     exactly in int32, and the per-pair totals and the four support
     scatters are int64 ``index_add_`` — no 2²⁴ ceiling anywhere.  Only
     the three results come back to the host.
+
+    Either route ends with one ``counting.tiles`` counter sample of the
+    :class:`TileStats` when the obs layer is on.
     """
     n_u, m = source.n_u, source.m
     stats = TileStats()
@@ -251,8 +255,19 @@ def tiled_butterfly_init(
     if use_pallas:
         from .peel import resolve_device
 
-        return _tiled_init_device(tiles, n_u, m, width,
-                                  resolve_device(device), stats)
+        out = _tiled_init_device(tiles, n_u, m, width,
+                                 resolve_device(device), stats)
+    else:
+        out = _tiled_init_host(tiles, n_u, m, stats)
+    obs.counter("counting.tiles", dict(
+        tiles=stats.n_tiles, wedges=stats.n_wedges, pairs=stats.n_pairs,
+        peak_tile_wedges=stats.peak_tile_wedges,
+        peak_slot_bytes=stats.peak_slot_bytes))
+    return out
+
+
+def _tiled_init_host(tiles, n_u, m, stats):
+    """The host route of :func:`tiled_butterfly_init` (numpy)."""
     sup_e = np.zeros(m, dtype=np.int64)
     sup_u = np.zeros(n_u, dtype=np.int64)
     total = 0

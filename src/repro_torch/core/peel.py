@@ -27,9 +27,12 @@ Three engines, as in the JAX package, all giving the same θ:
 
 The dense and beindex engines peel their FD partitions from the host
 (one device update and one support copy per round), as the JAX
-package's do.  Entry points run on the card (``device="cuda"``) unless
-the caller passes ``device="cpu"``, where every kernel is replaced by
-its plain version.
+package's do.  With the obs layer on, every FD driver also feeds the
+run's timeline: the device-side loops through their ``*_rings`` twins
+(drained by :func:`_drain_rings`), the host loops round by round.
+Entry points run on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"``, where every kernel is replaced by its plain
+version.
 """
 from __future__ import annotations
 
@@ -49,11 +52,15 @@ from .peelspec import (
     _bucket_pad,
     _fd_cascade,
     _fd_while_device,
+    _fd_while_device_rings,
     _fd_while_fused,
+    _fd_while_fused_rings,
     _fd_while_vmapped,
+    _fd_while_vmapped_rings,
     _pad_zeros,
     decompose,
 )
+from .. import obs
 from ..kernels import ops as kops
 from ..kernels.ref import matmul_f32
 
@@ -81,6 +88,63 @@ def resolve_device(device) -> torch.device:
             "device='cuda' but torch.cuda.is_available() is False; pass "
             "device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def _device_loop(mine, sup0, update, aux, ring_cap: int):
+    """:func:`_fd_while_device`, or its ring twin where ``ring_cap`` > 0.
+    Returns (theta, rounds, updates, rings or None)."""
+    if ring_cap:
+        return _fd_while_device_rings(mine, sup0, update, aux, ring_cap)
+    return (*_fd_while_device(mine, sup0, update, aux), None)
+
+
+def _vmapped_loop(mine, sup0, update, aux, ring_cap: int):
+    """:func:`_fd_while_vmapped`, or its ring twin where ``ring_cap`` >
+    0.  Returns (theta, rounds, updates, rings or None)."""
+    if ring_cap:
+        return _fd_while_vmapped_rings(mine, sup0, update, aux, ring_cap)
+    return (*_fd_while_vmapped(mine, sup0, update, aux), None)
+
+
+def _fused_loop(state0, round_fn, ring_cap: int):
+    """:func:`_fd_while_fused`, or its ring twin where ``ring_cap`` > 0.
+    Returns (state, rings or None)."""
+    if ring_cap:
+        return _fd_while_fused_rings(state0, round_fn, ring_cap)
+    return _fd_while_fused(state0, round_fn), None
+
+
+def _drain_rings(mode, parts, rounds, rings, cap, cumulative=False):
+    """Hand one FD launch's counter rings to the active timeline
+    collector (no-op when the obs layer is off)."""
+    col = obs.active_collector()
+    if col is not None:
+        col.record_fd_rings(mode, parts, rounds, rings, cap,
+                            cumulative_updates=cumulative)
+
+
+def _host_recorder(part_i: int, nupd_now=None):
+    """``(on_round, finish)`` for a host-driven cascade of partition
+    ``part_i`` while a timeline collector is live, else ``(None, None)``:
+    ``on_round(k, died, frontier)`` after every round, ``finish()`` once
+    at the end hands the rows to the collector.  With ``nupd_now`` (the
+    cascade's running update count) each round's update delta is
+    recorded too."""
+    col = obs.active_collector()
+    if col is None:
+        return None, None
+    rows: list = []
+    upds: list = [] if nupd_now is not None else None
+    last = [0]
+
+    def on_round(k, died, frontier):
+        rows.append(dict(k=k, died=died, frontier=frontier))
+        if upds is not None:
+            n = nupd_now()
+            upds.append(n - last[0])
+            last[0] = n
+
+    return on_round, lambda: col.record_fd_host(part_i, rows, updates=upds)
 
 
 def _t(x: np.ndarray, device) -> torch.Tensor:
@@ -276,7 +340,7 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
         rows = np.where(part == i)[0]
         if rows.size == 0:
             return 0, 0, 0
-        return _tip_fd_peel(A, rows, sup_init[rows], theta), 0, 0
+        return _tip_fd_peel(A, rows, sup_init[rows], theta, int(i)), 0, 0
 
     return PeelSpec(
         kind="tip", n=n, sup0=sup0,
@@ -288,7 +352,7 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
 
 
 def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
-                 theta: np.ndarray) -> int:
+                 theta: np.ndarray, part_i: int = 0) -> int:
     """Sequential (level-synchronous) bottom-up peel of one partition.
 
     Exact because a butterfly has exactly two U-endpoints and V is never
@@ -297,6 +361,7 @@ def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
     pair_bf = _pair_butterflies(A[_t(rows, dev)])
     alive = np.ones(rows.size, dtype=bool)
     support = sup0.astype(np.float64).copy()
+    on_round, finish = _host_recorder(part_i)
     k = 0
     rounds = 0
     while alive.any():
@@ -309,6 +374,10 @@ def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
             alive &= ~S
             support -= _tip_fd_delta(pair_bf, _t(S, dev)).cpu().numpy()
             rounds += 1
+            if on_round is not None:
+                on_round(k=k, died=int(S.sum()), frontier=int(alive.sum()))
+    if finish is not None:
+        finish()
     return rounds
 
 
@@ -359,9 +428,14 @@ def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
                     int(part.max()) + 1 if part.size else 0,
                     bucket=True, stacked=True)
             p = fused_pack["p"]
-            theta_st, rounds = _fd_tip_fused(
+            cap = obs.fd_ring_cap()
+            theta_st, rounds, rings = _fd_tip_fused(
                 *(_t(p[key][i:i + 1], device)
-                  for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")))
+                  for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")),
+                ring_cap=cap)
+            if rings is not None:
+                _drain_rings("fused", [i], [int(rounds[0])], rings, cap,
+                             cumulative=True)
             mm = p["mine"][i]
             theta[p["gids"][i][mm]] = _host(theta_st[0])[mm]
             return int(rounds[0]), 0, 0
@@ -395,32 +469,35 @@ def _fused_state(mine: torch.Tensor, sup0: torch.Tensor, n_scalars: int):
               for _ in range(n_scalars)))
 
 
-def _fd_tip_fused(st_pa, st_pb, st_bf, mine, sup0):
+def _fd_tip_fused(st_pa, st_pb, st_bf, mine, sup0, ring_cap: int = 0):
     """Tip FD of B stacked partitions, one ``fd_round_tip`` per round
     over the (B, L) partition-local pair lists.  Returns (theta (B, E),
-    rounds (B,))."""
+    rounds (B,), rings or None)."""
     def round_fn(sup, alive, theta, k, rounds):
         return kops.fd_round_tip(sup, alive, theta, k, rounds,
                                  st_pa, st_pb, st_bf)
 
-    out = _fd_while_fused(_fused_state(mine, sup0, 2), round_fn)
-    return out[2], out[4][:, 0]
+    out, rings = _fused_loop(_fused_state(mine, sup0, 2), round_fn,
+                             ring_cap)
+    return out[2], out[4][:, 0], rings
 
 
-def _fd_tip_device(mine, sup0, pa, pb, pbf, n: int):
-    """One tip partition's cascade (unfused), over (n,) global ids."""
+def _fd_tip_device(mine, sup0, pa, pb, pbf, n: int, ring_cap: int = 0):
+    """One tip partition's cascade (unfused), over (n,) global ids.
+    Returns (theta, rounds, updates, rings or None)."""
     zero = torch.zeros((), dtype=_I32, device=sup0.device)
 
     def update(S, aux):
         return csr.tip_delta_csr(S, pa, pb, pbf, n), aux, zero
 
-    return _fd_while_device(mine, sup0, update, None)
+    return _device_loop(mine, sup0, update, None, ring_cap)
 
 
-def _fd_tip_vmapped(pag, pbg, bff, mine, sup0):
+def _fd_tip_vmapped(pag, pbg, bff, mine, sup0, ring_cap: int = 0):
     """All tip partitions in one batched loop (unfused):
     :func:`csr.tip_delta_csr` over the ragged-concatenated pair lists
-    with pre-globalized ids (partition b's vertex u → b·Emax+u)."""
+    with pre-globalized ids (partition b's vertex u → b·Emax+u).
+    Returns (theta, rounds, updates, rings or None)."""
     B, Emax = mine.shape
     zero = torch.zeros((), dtype=_I32, device=sup0.device)
 
@@ -430,7 +507,7 @@ def _fd_tip_vmapped(pag, pbg, bff, mine, sup0):
                 + csr._seg(torch.where(Sf[pag], bff, 0), pbg, B * Emax))
         return loss.reshape(B, Emax), aux, zero
 
-    return _fd_while_vmapped(mine, sup0, update, None)
+    return _vmapped_loop(mine, sup0, update, None, ring_cap)
 
 
 def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
@@ -450,12 +527,15 @@ def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
 
     if fd_driver == "device":
         size = _bucket_pad(int(mask.sum()))
-        theta_d, rounds, _ = _fd_tip_device(
+        cap = obs.fd_ring_cap()
+        theta_d, rounds, _, rings = _fd_tip_device(
             _t(mine, device), _t(support0.astype(np.int32), device),
             _t(_pad_zeros(wed.pair_a[mask], size), device),
             _t(_pad_zeros(wed.pair_b[mask], size), device),
             _t(_pad_zeros(pair_bf0[mask].astype(np.int32), size), device),
-            n)
+            n, ring_cap=cap)
+        if rings is not None:
+            _drain_rings("device", [i], [int(rounds)], rings, cap)
         theta[mine] = _host(theta_d)[mine]
         return int(rounds)
 
@@ -466,7 +546,11 @@ def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
     def peel(S, sup):
         return sup - _host(csr.tip_delta_csr(_t(S, device), pa, pb, pbf, n))
 
-    return _fd_cascade(mine, support0, theta, peel)
+    on_round, finish = _host_recorder(i)
+    rounds = _fd_cascade(mine, support0, theta, peel, on_round=on_round)
+    if finish is not None:
+        finish()
+    return rounds
 
 
 def _tip_fd_vmapped_csr(wed, pair_bf0, part, sup_init, theta, n_parts,
@@ -477,17 +561,24 @@ def _tip_fd_vmapped_csr(wed, pair_bf0, part, sup_init, theta, n_parts,
         return np.zeros(0, dtype=np.int64)
     packed = pack_fd_partitions_tip_csr(
         wed, pair_bf0, part, sup_init, n_parts, bucket=True, stacked=fused)
+    cap = obs.fd_ring_cap()
     if fused:
-        theta_st, rounds = _fd_tip_fused(
+        theta_st, rounds, rings = _fd_tip_fused(
             *(_t(packed[key], device)
-              for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")))
+              for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")),
+            ring_cap=cap)
     else:
-        theta_st, rounds, _ = _fd_tip_vmapped(
+        theta_st, rounds, _, rings = _fd_tip_vmapped(
             *(_t(packed[key], device)
-              for key in ("pa", "pb", "bf", "mine", "sup0")))
+              for key in ("pa", "pb", "bf", "mine", "sup0")), ring_cap=cap)
     mm = packed["mine"]
     theta[packed["gids"][mm]] = _host(theta_st)[mm]
-    return _host(rounds)
+    rounds_np = _host(rounds)
+    if rings is not None:
+        _drain_rings("fused" if fused else "vmapped",
+                     list(range(rounds_np.size)), rounds_np.tolist(), rings,
+                     cap, cumulative=fused)
+    return rounds_np
 
 
 # =====================================================================
@@ -631,7 +722,11 @@ def _wing_fd_beindex(g: BipartiteGraph, be: BEIndex, part: np.ndarray,
         st["nupd"] += int(nu)
         return _host(st["support"])
 
-    rounds = _fd_cascade(mine, support_full.copy(), theta, peel)
+    on_round, finish = _host_recorder(i, lambda: st["nupd"])
+    rounds = _fd_cascade(mine, support_full.copy(), theta, peel,
+                         on_round=on_round)
+    if finish is not None:
+        finish()
     return rounds, st["nupd"]
 
 
@@ -682,6 +777,7 @@ def _wing_fd_dense(g: BipartiteGraph, part: np.ndarray, i: int,
     shape = (g.n_u, g.n_v)
     alive = np.ones(sel.size, dtype=bool)
     support = sup_init[sel].astype(np.int64).copy()
+    on_round, finish = _host_recorder(int(i))
     k = 0
     rounds = 0
     while (alive & mine).any():
@@ -695,6 +791,11 @@ def _wing_fd_dense(g: BipartiteGraph, part: np.ndarray, i: int,
             support = _host_rint(
                 _wing_recount(shape, sub_edges, _t(alive, device)))
             rounds += 1
+            if on_round is not None:
+                on_round(k=k, died=int(S.sum()),
+                         frontier=int((alive & mine).sum()))
+    if finish is not None:
+        finish()
     return rounds, rounds
 
 
@@ -765,10 +866,14 @@ def _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
                 p["W_rows"] = _w_rows(p, n_parts)
                 fused_pack["p"] = p
             p = fused_pack["p"]
-            theta_st, rounds, nupd = _fd_wing_fused(
+            cap = obs.fd_ring_cap()
+            theta_st, rounds, nupd, rings = _fd_wing_fused(
                 *(_t(p[key][i:i + 1], device)
                   for key in ("slot_e1", "slot_e2", "slot_valid", "W_rows",
-                              "mine", "sup0")))
+                              "mine", "sup0")), ring_cap=cap)
+            if rings is not None:
+                _drain_rings("fused", [i], [int(rounds[0])], rings, cap,
+                             cumulative=True)
             mm = p["mine"][i]
             theta[p["gids"][i][mm]] = _host(theta_st[0])[mm]
             return int(rounds[0]), int(nupd), 0
@@ -787,10 +892,11 @@ def _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
     )
 
 
-def _fd_wing_fused(slot_e1, slot_e2, valid0, W0, mine, sup0):
+def _fd_wing_fused(slot_e1, slot_e2, valid0, W0, mine, sup0,
+                   ring_cap: int = 0):
     """Wing FD of B stacked partitions, one ``fd_round_wing`` per round
     over the (B, R, K) pairs-major slots.  Returns (theta (B, E), rounds
-    (B,), update count)."""
+    (B,), update count, rings or None)."""
     state0 = (*_fused_state(mine, sup0, 3), valid0.to(_I32, copy=True),
               W0.to(torch.float32, copy=True))
 
@@ -798,27 +904,30 @@ def _fd_wing_fused(slot_e1, slot_e2, valid0, W0, mine, sup0):
         return kops.fd_round_wing(sup, alive, theta, k, rounds, nupd, aslot,
                                   W, slot_e1, slot_e2)
 
-    out = _fd_while_fused(state0, round_fn)
-    return out[2], out[4][:, 0], out[5].sum()
+    out, rings = _fused_loop(state0, round_fn, ring_cap)
+    return out[2], out[4][:, 0], out[5].sum(), rings
 
 
 def _fd_wing_device(mine, sup0, alive_w0, W0, we1, we2, wp, n_pairs: int,
-                    m: int):
-    """One wing partition's cascade (unfused), over (m,) global ids."""
+                    m: int, ring_cap: int = 0):
+    """One wing partition's cascade (unfused), over (m,) global ids.
+    Returns (theta, rounds, updates, rings or None)."""
     def update(S, aux):
         alive_w, W = aux
         alive_w, W, loss, nu = csr.wing_loss_csr(
             S, alive_w, W, we1, we2, wp, n_pairs, m)
         return loss, (alive_w, W), nu
 
-    return _fd_while_device(mine, sup0, update, (alive_w0, W0))
+    return _device_loop(mine, sup0, update, (alive_w0, W0), ring_cap)
 
 
-def _fd_wing_vmapped(e1g, e2g, wpg, alive0, W0, mine, sup0, n_pairs: int):
+def _fd_wing_vmapped(e1g, e2g, wpg, alive0, W0, mine, sup0, n_pairs: int,
+                     ring_cap: int = 0):
     """All wing partitions in one batched loop (unfused):
     :func:`csr.wing_loss_csr` over the ragged-concatenated wedge lists
     with pre-globalized ids (partition b's edge e → b·(Emax+1)+e, whose
-    column Emax is b's never-peeled sentinel)."""
+    column Emax is b's never-peeled sentinel).  Returns (theta, rounds,
+    updates, rings or None)."""
     B, Emax = mine.shape
     nseg = B * (Emax + 1)
 
@@ -829,14 +938,16 @@ def _fd_wing_vmapped(e1g, e2g, wpg, alive0, W0, mine, sup0, n_pairs: int):
             S_pad, alive_w, W, e1g, e2g, wpg, n_pairs, nseg)
         return loss.reshape(B, Emax + 1)[:, :Emax], (alive_w, W), nu
 
-    return _fd_while_vmapped(mine, sup0, update, (alive0, W0))
+    return _vmapped_loop(mine, sup0, update, (alive0, W0), ring_cap)
 
 
-def _fd_wing_vmapped_pallas(slot_e1, slot_e2, valid0, W0, mine, sup0):
+def _fd_wing_vmapped_pallas(slot_e1, slot_e2, valid0, W0, mine, sup0,
+                            ring_cap: int = 0):
     """All wing partitions in one batched loop with the ``support_update``
     kernel inside: the stacked slot blocks flatten to one (B·R, K)
     matrix, so each round is one kernel launch covering every partition;
-    only the loss scatter stays an ``index_add_``."""
+    only the loss scatter stays an ``index_add_``.  Returns (theta,
+    rounds, updates, rings or None)."""
     B, Emax = mine.shape
     _, R, K = slot_e1.shape
     nseg = B * (Emax + 1)
@@ -853,8 +964,9 @@ def _fd_wing_vmapped_pallas(slot_e1, slot_e2, valid0, W0, mine, sup0):
         return (loss.reshape(B, Emax + 1)[:, :Emax], (alive_slots, W - c_row),
                 nu)
 
-    return _fd_while_vmapped(mine, sup0, update,
-                             (valid0.reshape(B * R, K), W0.reshape(B * R)))
+    return _vmapped_loop(mine, sup0, update,
+                         (valid0.reshape(B * R, K), W0.reshape(B * R)),
+                         ring_cap)
 
 
 def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
@@ -885,13 +997,16 @@ def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
         size = _bucket_pad(n_kept)
         alive_w = np.zeros(size, dtype=bool)
         alive_w[:n_kept] = True
-        theta_d, rounds, nupd = _fd_wing_device(
+        cap = obs.fd_ring_cap()
+        theta_d, rounds, nupd, rings = _fd_wing_device(
             _t(mine, device), _t(support_full.astype(np.int32), device),
             _t(alive_w, device), Wp,
             _t(_pad_zeros(wed.wedge_e1[keep], size), device),
             _t(_pad_zeros(wed.wedge_e2[keep], size), device),
             _t(_pad_zeros(wed.wedge_pair[keep], size), device),
-            n_pairs, m)
+            n_pairs, m, ring_cap=cap)
+        if rings is not None:
+            _drain_rings("device", [i], [int(rounds)], rings, cap)
         theta[mine] = _host(theta_d)[mine]
         return int(rounds), int(nupd)
 
@@ -909,7 +1024,10 @@ def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
         nupd += int(nu)
         return _host(support)
 
-    rounds = _fd_cascade(mine, support_full, theta, peel)
+    on_round, finish = _host_recorder(i, lambda: nupd)
+    rounds = _fd_cascade(mine, support_full, theta, peel, on_round=on_round)
+    if finish is not None:
+        finish()
     return rounds, nupd
 
 
@@ -925,22 +1043,29 @@ def _wing_fd_vmapped_csr(wed, part, sup_init, theta, n_parts, use_pallas,
     packed = pack_fd_partitions_csr(
         wed, part, sup_init, n_parts, bucket=True,
         flat=not slotted, slots=slotted)
+    cap = obs.fd_ring_cap()
     if slotted:
         body = _fd_wing_fused if fused else _fd_wing_vmapped_pallas
-        theta_st, rounds, nupd = body(
+        theta_st, rounds, nupd, rings = body(
             _t(packed["slot_e1"], device), _t(packed["slot_e2"], device),
             _t(packed["slot_valid"], device),
             _t(_w_rows(packed, n_parts), device),
-            _t(packed["mine"], device), _t(packed["sup0"], device))
+            _t(packed["mine"], device), _t(packed["sup0"], device),
+            ring_cap=cap)
     else:
-        theta_st, rounds, nupd = _fd_wing_vmapped(
+        theta_st, rounds, nupd, rings = _fd_wing_vmapped(
             *(_t(packed[key], device)
               for key in ("flat_we1", "flat_we2", "flat_wp", "flat_alive0",
                           "flat_W0", "mine", "sup0")),
-            n_pairs=int(packed["flat_W0"].shape[0]))
+            n_pairs=int(packed["flat_W0"].shape[0]), ring_cap=cap)
     mm = packed["mine"]
     theta[packed["gids"][mm]] = _host(theta_st)[mm]
-    return _host(rounds), int(nupd)
+    rounds_np = _host(rounds)
+    if rings is not None:
+        _drain_rings("fused" if fused else "vmapped",
+                     list(range(rounds_np.size)), rounds_np.tolist(), rings,
+                     cap, cumulative=fused)
+    return rounds_np, int(nupd)
 
 
 # =====================================================================

@@ -13,6 +13,14 @@ drive any spec.  Three FD drivers exist once each:
   case) — the batched cascade of plain tensor operations;
 * :func:`_fd_while_fused` — one fused kernel round per iteration.
 
+With the obs layer on (``repro_torch.obs``), :func:`decompose` installs
+a timeline collector and wraps the run in ``peel`` / ``cd`` / ``fd``
+spans, :func:`cd_loop` records one ``cd.round`` span per round and
+:func:`run_fd` one ``fd.launch`` span per dispatch; the device-side
+drivers then run as their ``*_rings`` twins, which also write per-round
+counters into int32 rings on the device, read once after the loop.
+With it off none of that runs.
+
 The JAX package runs the last two as ``lax.while_loop`` on the device.
 Here they are host loops that never read the device inside a round:
 rounds are queued in chunks of :data:`FD_CHUNK`, and one flag,
@@ -31,6 +39,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .. import obs
 
 __all__ = [
     "PeelStats",
@@ -97,7 +107,8 @@ class PeelResult:
     entity, the range boundaries θ(1..P+1), the ⋈init snapshot and the
     engine-tagged :class:`PeelStats`; ``seconds`` holds the host-clock
     seconds of the two phases (``cd``, ``fd``) and is no part of the
-    provenance."""
+    provenance; ``timeline`` holds the per-round curves when the obs
+    layer was on during the run."""
 
     theta: np.ndarray         # entity numbers
     part: np.ndarray          # CD partition id per entity
@@ -105,16 +116,21 @@ class PeelResult:
     support_init: np.ndarray  # ⋈init vector
     stats: PeelStats
     seconds: dict = dataclasses.field(default_factory=dict)
+    timeline: Optional["obs.PeelTimeline"] = None
 
     def provenance(self) -> dict:
         """Everything besides θ a downstream consumer needs to rebuild
-        the peeling order: stats, partition, ranges and ⋈init."""
-        return dict(
+        the peeling order: stats, partition, ranges and ⋈init, and the
+        timeline's digest where one was collected."""
+        prov = dict(
             stats=self.stats.as_dict(),
             part=np.asarray(self.part),
             ranges=np.asarray(self.ranges),
             support_init=np.asarray(self.support_init),
         )
+        if self.timeline is not None:
+            prov["timeline"] = self.timeline.summary()
+        return prov
 
 
 # =====================================================================
@@ -211,8 +227,11 @@ def cd_loop(spec: PeelSpec, P: int, stats: PeelStats, target=None):
     """Coarse-grained decomposition: adaptive range selection + masked
     peel rounds until every entity is assigned a partition.  Host-driven:
     one ``cd_step`` (device update + support copy to the host) per round.
+    With a timeline collector live, each round is also a ``cd.round``
+    span and a timeline row.
 
     Returns ``(part, sup_init, ranges, p_effective)``."""
+    col = obs.active_collector()
     sup_np = np.asarray(spec.sup0, dtype=np.int64).copy()
     n = sup_np.size
     if target is None:
@@ -240,7 +259,20 @@ def cd_loop(spec: PeelSpec, P: int, stats: PeelStats, target=None):
                 break
             part[active] = i
             alive &= ~active
-            sup_np = spec.cd_step(active)
+            if col is None:
+                sup_np = spec.cd_step(active)
+            else:
+                died = int(active.sum())
+                u0, r0 = stats.updates, stats.recounts
+                with obs.span("cd.round", cat="cd.round",
+                              part=int(i)) as sp:
+                    sup_np = spec.cd_step(active)
+                    frontier = int(alive.sum())
+                    du = stats.updates - u0
+                    dr = stats.recounts - r0
+                    sp.update(died=died, frontier=frontier, hi=int(hi),
+                              updates=du, recounts=dr)
+                col.record_cd_round(i, died, frontier, int(hi), du, dr)
             stats.rho_cd += 1
         final_est = float(spec.est(sup_init)[part == i].sum())
         target.consumed(initial_est, final_est)
@@ -270,7 +302,8 @@ def run_fd(
     order through ``spec.fd_partition``.  ``only`` restricts the
     per-partition path to a subset of partition ids; ``per_partition``,
     when a dict, receives ``{i: (rounds, updates, recounts)}``.  Writes θ
-    in place and charges the FD counters."""
+    in place and charges the FD counters.  Each dispatch is an
+    ``fd.launch`` span (``fd.vmapped``, ``fd.partition[i]``)."""
     if n_parts <= 0:
         return
     if fd_driver == "vmapped":
@@ -279,8 +312,12 @@ def run_fd(
                 "only= requires a per-partition fd_driver "
                 "('device' | 'host'); the vmapped driver runs every "
                 "partition in one batched loop")
-        rounds_v, nupd = spec.fd_vmapped(part, sup_init, theta, n_parts)
-        rounds_v = np.asarray(rounds_v)
+        with obs.span("fd.vmapped", cat="fd.launch",
+                      n_parts=int(n_parts)) as sp:
+            rounds_v, nupd = spec.fd_vmapped(part, sup_init, theta, n_parts)
+            rounds_v = np.asarray(rounds_v)
+            if sp is not None:
+                sp.update(rounds=int(rounds_v.sum()), updates=int(nupd))
         stats.rho_fd_total = int(rounds_v.sum())
         stats.rho_fd_max = int(rounds_v.max()) if rounds_v.size else 0
         stats.updates += int(nupd)
@@ -298,8 +335,13 @@ def run_fd(
     )
     for j in _lpt_order(part_work):
         i = int(ids[j])
-        rounds, nupd, nrec = spec.fd_partition(
-            i, part, sup_init, theta, fd_driver)
+        with obs.span(f"fd.partition[{i}]", cat="fd.launch",
+                      part=i) as sp:
+            rounds, nupd, nrec = spec.fd_partition(
+                i, part, sup_init, theta, fd_driver)
+            if sp is not None:
+                sp.update(rounds=int(rounds), updates=int(nupd),
+                          recounts=int(nrec))
         if per_partition is not None:
             per_partition[i] = (int(rounds), int(nupd), int(nrec))
         stats.rho_fd_total += rounds
@@ -317,29 +359,51 @@ def decompose(
 ) -> PeelResult:
     """Run both phases of one :class:`PeelSpec` and assemble the
     :class:`PeelResult` — the driver behind ``tip_decomposition`` and
-    ``wing_decomposition``."""
-    t0 = time.perf_counter()
-    part, sup_init, ranges, p_eff = cd_loop(spec, P, stats, target=target)
-    t1 = time.perf_counter()
-    theta = np.zeros(spec.n, dtype=np.int64)
-    run_fd(spec, part, sup_init, theta, p_eff, stats, fd_driver=fd_driver)
+    ``wing_decomposition``.
+
+    With the obs layer on this is the telemetry root: it installs the
+    timeline collector, wraps the run in a ``peel`` span with ``cd`` /
+    ``fd`` phase spans, attaches the built timeline to the result and
+    adds the per-round ``fd.round`` events to the trace."""
+    with obs.maybe_collect() as col:
+        with obs.span("peel.decompose", cat="peel", kind=spec.kind,
+                      engine=stats.engine, fd_driver=fd_driver, P=int(P)):
+            t0 = time.perf_counter()
+            with obs.span("cd", cat="cd"):
+                part, sup_init, ranges, p_eff = cd_loop(
+                    spec, P, stats, target=target)
+            t1 = time.perf_counter()
+            theta = np.zeros(spec.n, dtype=np.int64)
+            with obs.span("fd", cat="fd", driver=fd_driver):
+                run_fd(spec, part, sup_init, theta, p_eff, stats,
+                       fd_driver=fd_driver)
+            t2 = time.perf_counter()
+    timeline = None
+    if col is not None:
+        timeline = col.build()
+        tracer = obs.get_tracer()
+        if tracer is not None:
+            timeline.emit_trace_events(tracer)
     return PeelResult(theta=theta, part=part, ranges=ranges,
                       support_init=sup_init, stats=stats,
-                      seconds=dict(cd=t1 - t0, fd=time.perf_counter() - t1))
+                      seconds=dict(cd=t1 - t0, fd=t2 - t1),
+                      timeline=timeline)
 
 
 # =====================================================================
 # FD cascade drivers — each body exists exactly once
 # =====================================================================
 def _fd_cascade(mine: np.ndarray, support0: np.ndarray, theta: np.ndarray,
-                apply_peel) -> int:
+                apply_peel, on_round=None) -> int:
     """Level-synchronous bottom-up cascade driven from the host: advance
     k to the minimum alive support, peel the ≤k set, apply the engine's
     update, repeat until the partition is empty.
 
     ``apply_peel(S, sup)`` consumes the peel mask and the current int64
     support vector and returns the refreshed one.  Returns the number
-    of peel rounds."""
+    of peel rounds.  ``on_round(k, died, frontier)``, when given, is
+    called after every round (the obs layer's host-side stand-in for the
+    counter rings)."""
     alive = mine.copy()
     sup = support0
     k = 0
@@ -354,6 +418,8 @@ def _fd_cascade(mine: np.ndarray, support0: np.ndarray, theta: np.ndarray,
             alive &= ~S
             sup = apply_peel(S, sup)
             rounds += 1
+            if on_round is not None:
+                on_round(k=k, died=int(S.sum()), frontier=int(alive.sum()))
     return rounds
 
 
@@ -388,6 +454,31 @@ def _until_drained(state, step, alive_at: int):
     return state
 
 
+def _peel_round(alive, sup, aux, theta, k, update):
+    """One peel round of every live partition of a [B, E] batch: its own
+    k-advance to the minimum alive support, the ≤k peel set S, θ and the
+    engine's ``update(S, aux) -> (loss, aux', n_upd)``.  Returns (S,
+    live, alive, sup, aux, theta, k, n_upd), ``live`` the partitions that
+    held anything alive before the round."""
+    live = alive.any(dim=1)
+    k = torch.maximum(k, sup.masked_fill(~alive, _FD_BIG).amin(dim=1))
+    S = alive & (sup <= k[:, None])
+    theta = torch.where(S, k[:, None], theta)
+    alive = alive & ~S
+    loss, aux, nu = update(S, aux)
+    return S, live, alive, sup - loss, aux, theta, k, nu
+
+
+def _batch_of_one(update):
+    """An (n,)-mask ``update`` lifted to the [1, n] batch of the
+    vmapped drivers."""
+    def update_b(S, aux):
+        loss, aux, nu = update(S[0], aux)
+        return loss[None], aux, nu
+
+    return update_b
+
+
 def _fd_while_vmapped(mine: torch.Tensor, sup0: torch.Tensor, update, aux):
     """The whole Phase 2 of B stacked partitions as one batched loop of
     plain tensor operations.
@@ -397,36 +488,32 @@ def _fd_while_vmapped(mine: torch.Tensor, sup0: torch.Tensor, update, aux):
     per-partition round counts equal the per-partition drivers'.
     ``update(S, aux) -> (loss, aux', n_upd)`` consumes the batched peel
     mask S [B, E].  Returns (theta [B, E], rounds [B], updates)."""
+    def step(alive, sup, aux, theta, k, rounds, nupd):
+        _, live, alive, sup, aux, theta, k, nu = _peel_round(
+            alive, sup, aux, theta, k, update)
+        return (alive, sup, aux, theta, k, rounds + live.to(torch.int32),
+                nupd + nu)
+
+    state = _until_drained(_vmapped_state(mine, sup0, aux), step,
+                           alive_at=0)
+    return state[3], state[5], state[6]
+
+
+def _vmapped_state(mine: torch.Tensor, sup0: torch.Tensor, aux):
+    """The batched loop's initial state: alive, sup, aux, θ, k, rounds,
+    update count."""
     zero = torch.zeros_like(sup0)
     zero_p = zero[:, 0]
-
-    def step(alive, sup, aux, theta, k, rounds, nupd):
-        live = alive.any(dim=1)
-        k = torch.maximum(k, sup.masked_fill(~alive, _FD_BIG).amin(dim=1))
-        S = alive & (sup <= k[:, None])
-        theta = torch.where(S, k[:, None], theta)
-        alive = alive & ~S
-        loss, aux, nu = update(S, aux)
-        return (alive, sup - loss, aux, theta, k,
-                rounds + live.to(torch.int32), nupd + nu)
-
-    state = (mine, sup0, aux, zero, zero_p, zero_p,
-             torch.zeros((), dtype=torch.int32, device=sup0.device))
-    state = _until_drained(state, step, alive_at=0)
-    return state[3], state[5], state[6]
+    return (mine, sup0, aux, zero, zero_p, zero_p,
+            torch.zeros((), dtype=torch.int32, device=sup0.device))
 
 
 def _fd_while_device(mine: torch.Tensor, sup0: torch.Tensor, update, aux):
     """One partition's cascade over (n,) arrays: the B = 1 case of
     :func:`_fd_while_vmapped`.  ``update(S, aux) -> (loss, aux', n_upd)``
     takes the (n,) peel mask.  Returns (theta (n,), rounds, updates)."""
-
-    def update_b(S, aux):
-        loss, aux, nu = update(S[0], aux)
-        return loss[None], aux, nu
-
     theta, rounds, nupd = _fd_while_vmapped(mine[None], sup0[None],
-                                            update_b, aux)
+                                            _batch_of_one(update), aux)
     return theta[0], rounds[0], nupd
 
 
@@ -435,3 +522,109 @@ def _fd_while_fused(state0, round_fn):
     ``state0`` holds the alive mask (nonzero = alive) at index 1;
     ``round_fn(*state) -> state`` is the fused round."""
     return _until_drained(state0, round_fn, alive_at=1)
+
+
+# =====================================================================
+# Telemetry-on twins of the FD drivers (obs counter rings)
+# =====================================================================
+# Each ``*_rings`` function runs its twin's rounds (the same
+# ``_peel_round`` / fused round) and also writes per-round int32
+# counters into preallocated rings on the device — dying count,
+# frontier size, k-advance, update count — at row ``min(it, cap-1)``,
+# ``it`` the rounds run so far: the first cap-1 rounds and the last one
+# survive an overflow, which the drain flags ``truncated``.  A round
+# queued past the fixed point (``_until_drained`` queues up to
+# FD_CHUNK-1 of them) peels nothing, and its write is masked off, so
+# the rings hold exactly the JAX package's rows.  No host read happens
+# inside the loop; the rings come back to the host once, after it.
+# The twins are separate functions so that with the obs layer off no
+# ring is allocated and no ring code runs.
+def _new_rings(cap: int, B: int, dev, n_batched: int = 3):
+    """Four int32 rings: ``n_batched`` shaped (cap, B), the rest
+    (cap,)."""
+    return tuple(
+        torch.zeros((cap, B) if j < n_batched else (cap,),
+                    dtype=torch.int32, device=dev)
+        for j in range(4))
+
+
+def _ring_write(rings, it: torch.Tensor, on: torch.Tensor, rows) -> None:
+    """Write one round's counters ``rows`` at row ``min(it, cap-1)`` of
+    each ring where ``on`` (a 0-d bool: the round had anything alive);
+    elsewhere keep the row.  ``it`` is a (1,) int64 device tensor."""
+    slot = it.clamp(max=rings[0].shape[0] - 1)
+    for ring, row in zip(rings, rows):
+        cur = ring.index_select(0, slot)
+        ring.index_copy_(0, slot, torch.where(
+            on, row.to(ring.dtype).reshape(cur.shape), cur))
+
+
+def _host_rings(rings):
+    return tuple(r.cpu().numpy() for r in rings)
+
+
+def _fd_while_vmapped_rings(mine: torch.Tensor, sup0: torch.Tensor, update,
+                            aux, ring_cap: int):
+    """:func:`_fd_while_vmapped` + counter rings; returns ``(theta,
+    rounds, nupd, (died, frontier, k, upd))``, the rings host arrays: the
+    first three (ring_cap, B), the update ring (ring_cap,) (the engine's
+    per-round update count is a phase-global scalar)."""
+    rings = _new_rings(int(ring_cap), sup0.shape[0], sup0.device)
+    i32 = torch.int32
+
+    def step(alive, sup, aux, theta, k, rounds, nupd, it):
+        on = alive.any()
+        S, live, alive, sup, aux, theta, k, nu = _peel_round(
+            alive, sup, aux, theta, k, update)
+        _ring_write(rings, it, on, (S.sum(dim=1, dtype=i32),
+                                    alive.sum(dim=1, dtype=i32), k, nu))
+        return (alive, sup, aux, theta, k, rounds + live.to(i32), nupd + nu,
+                it + on)
+
+    it0 = torch.zeros((1,), dtype=torch.int64, device=sup0.device)
+    state = _until_drained((*_vmapped_state(mine, sup0, aux), it0), step,
+                           alive_at=0)
+    return state[3], state[5], state[6], _host_rings(rings)
+
+
+def _fd_while_device_rings(mine: torch.Tensor, sup0: torch.Tensor, update,
+                           aux, ring_cap: int):
+    """:func:`_fd_while_device` + counter rings; returns ``(theta,
+    rounds, nupd, (died, frontier, k, upd))`` with each ring a
+    (ring_cap,) host array."""
+    theta, rounds, nupd, rings = _fd_while_vmapped_rings(
+        mine[None], sup0[None], _batch_of_one(update), aux, ring_cap)
+    died, frontier, k, upd = rings
+    return (theta[0], rounds[0], nupd,
+            (died[:, 0], frontier[:, 0], k[:, 0], upd))
+
+
+def _fd_while_fused_rings(state0, round_fn, ring_cap: int):
+    """:func:`_fd_while_fused` + counter rings taken around the fused
+    round (the kernel itself is untouched): died / frontier from the
+    alive mask (state index 1) before and after the round, k from state
+    index 3, and — where the state carries a per-partition update count
+    at index 5 (the wing 8-tuple) — its *cumulative* value per round
+    (drain with ``cumulative_updates=True``).  Returns ``(state, (died,
+    frontier, k, upd_cum))``, the rings (ring_cap, B) host arrays."""
+    alive0 = state0[1]
+    B = alive0.shape[0]
+    rings = _new_rings(int(ring_cap), B, alive0.device, n_batched=4)
+    i32 = torch.int32
+    no_upd = torch.zeros((B,), dtype=i32, device=alive0.device)
+
+    def step(*carry):
+        *state, it = carry
+        alive = state[1] != 0
+        on = alive.any()
+        before = alive.sum(dim=1, dtype=i32)
+        new = round_fn(*state)
+        after = (new[1] != 0).sum(dim=1, dtype=i32)
+        nu_cum = new[5].sum(dim=1, dtype=i32) if len(new) > 5 else no_upd
+        _ring_write(rings, it, on,
+                    (before - after, after, new[3][:, 0], nu_cum))
+        return (*new, it + on)
+
+    it0 = torch.zeros((1,), dtype=torch.int64, device=alive0.device)
+    out = _until_drained((*state0, it0), step, alive_at=1)
+    return tuple(out[:-1]), _host_rings(rings)

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import csr
 from ..core.graph import BipartiteGraph
 from ..core.peel import resolve_device
@@ -299,8 +300,17 @@ def build_hierarchy(
     ``timings`` dict, if given, receives the seconds of the labelling
     (``labels``, of which ``incidence`` is the host wedge enumeration
     and upload), the propagation iterations run (``iterations``) and
-    the seconds of the host assembly (``assembly``).
+    the seconds of the host assembly (``assembly``).  With the obs layer
+    on, the build is a ``hierarchy.build`` span holding the
+    ``hierarchy.labels`` and ``hierarchy.node_stats`` spans.
     """
+    with obs.span("hierarchy.build", cat="hierarchy", kind=kind):
+        return _build_hierarchy_impl(g, result, kind, side, meta,
+                                     level_block, device, timings)
+
+
+def _build_hierarchy_impl(g, result, kind, side, meta, level_block, device,
+                          timings):
     if kind not in ("wing", "tip"):
         raise ValueError(kind)
     dev = resolve_device(device)
@@ -320,9 +330,11 @@ def build_hierarchy(
 
     levels = np.unique(theta[theta > 0])
     t0 = time.perf_counter()
-    labels = _component_labels_per_level(
-        gg, theta, levels, kind, level_block=level_block, device=dev,
-        timings=timings)
+    with obs.span("hierarchy.labels", cat="hierarchy",
+                  levels=int(levels.size)):
+        labels = _component_labels_per_level(
+            gg, theta, levels, kind, level_block=level_block, device=dev,
+            timings=timings)
     t1 = time.perf_counter()
     h = _assemble_from_labels(gg, theta, levels, labels, kind, side, prov,
                               meta)
@@ -398,26 +410,28 @@ def _assemble_from_labels(
     node_m = np.zeros(n_nodes, dtype=np.int64)
     node_nu = np.zeros(n_nodes, dtype=np.int64)
     node_nv = np.zeros(n_nodes, dtype=np.int64)
-    if kind == "wing":
-        eu = gg.edges[:, 0]
-        ev = gg.edges[:, 1]
-        for x in range(n_nodes):
-            ids = ent_order[estart[x]:eend[x]]
-            node_m[x] = ids.size
-            node_nu[x] = np.unique(eu[ids]).size
-            node_nv[x] = np.unique(ev[ids]).size
-    else:
-        du, _ = gg.degrees()
-        offu, nbru, _ = gg.csr_u()  # per-U CSR: neighbors are V ids
-        for x in range(n_nodes):
-            us = ent_order[estart[x]:eend[x]]
-            node_nu[x] = us.size
-            node_m[x] = int(du[us].sum())
-            if us.size:
-                vs = np.concatenate(
-                    [nbru[offu[u]:offu[u + 1]] for u in us]
-                )
-                node_nv[x] = np.unique(vs).size
+    with obs.span("hierarchy.node_stats", cat="hierarchy",
+                  n_nodes=int(n_nodes)):
+        if kind == "wing":
+            eu = gg.edges[:, 0]
+            ev = gg.edges[:, 1]
+            for x in range(n_nodes):
+                ids = ent_order[estart[x]:eend[x]]
+                node_m[x] = ids.size
+                node_nu[x] = np.unique(eu[ids]).size
+                node_nv[x] = np.unique(ev[ids]).size
+        else:
+            du, _ = gg.degrees()
+            offu, nbru, _ = gg.csr_u()  # per-U CSR: neighbors are V ids
+            for x in range(n_nodes):
+                us = ent_order[estart[x]:eend[x]]
+                node_nu[x] = us.size
+                node_m[x] = int(du[us].sum())
+                if us.size:
+                    vs = np.concatenate(
+                        [nbru[offu[u]:offu[u + 1]] for u in us]
+                    )
+                    node_nv[x] = np.unique(vs).size
 
     span = node_nu * node_nv
     density = np.divide(

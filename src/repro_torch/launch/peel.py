@@ -3,10 +3,10 @@
 The same flags as the JAX package's ``python -m repro.launch.peel`` for
 ``--kind/--engine/--fd-driver/--fused-fd/--use-pallas/--parts/--dataset/
 --edges/--tile-wedges/--ingest-dir/--n-u/--n-v/--m/--seed/--side/--out/
---emit-hierarchy``, plus ``--device`` (default ``cuda``; ``cpu`` runs
-the plain versions of the kernels).  It prints the same ``[peel] theta:
-... sha256=...`` line, so a run of each CLI on the same flags can be
-compared digest for digest::
+--emit-hierarchy/--trace``, plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain versions of the kernels).  It prints the same ``[peel]
+theta: ... sha256=...`` line, so a run of each CLI on the same flags can
+be compared digest for digest::
 
     PYTHONPATH=src python -m repro_torch.launch.peel --kind wing
     PYTHONPATH=src python -m repro_torch.launch.peel --kind tip --engine dense
@@ -19,8 +19,11 @@ dense`` runs for both kinds.  ``--edges`` is the real-graph path:
 out-of-core ingest, the tiled ⋈init (through the ``wedge_count_tile``
 kernel with ``--use-pallas``), then the engines fed through ``sup0``.
 ``--emit-hierarchy`` builds the hierarchy on the device and writes the
-versioned npz artifact.  Unsupported flag combinations exit with the
-JAX CLI's error texts.
+versioned npz artifact.  ``--trace PATH`` turns the observability
+layer (``repro_torch.obs``) on for the run, prints the ``[peel]
+timeline:`` digest and writes a Chrome trace of the peel / cd /
+cd.round / fd / fd.launch / fd.round / hierarchy events to PATH.
+Unsupported flag combinations exit with the JAX CLI's error texts.
 """
 from __future__ import annotations
 
@@ -162,12 +165,34 @@ def run(args, g=None) -> dict:
     ``hierarchy_incidence`` is the host wedge enumeration —,
     ``hierarchy_assembly``, as far as the run had them), with
     ``--edges`` ``stats_out["tiled_init"]`` the tiled init's total
-    butterflies, TileStats and ⋈init vector, and with ``--emit-hierarchy``
-    ``stats_out["hierarchy"]`` the Hierarchy."""
+    butterflies, TileStats and ⋈init vector, with ``--emit-hierarchy``
+    ``stats_out["hierarchy"]`` the Hierarchy, and with ``--trace``
+    ``stats_out["timeline"]`` the timeline's digest and
+    ``stats_out["trace"]`` the Tracer (the layer is off again after the
+    run unless the caller had turned it on)."""
+    from .. import obs
+
+    _validate(args)
+    was_on = obs.enabled()
+    if args.trace:
+        obs.enable()
+    try:
+        stats_out = _run(args, g)
+    finally:
+        tracer = obs.get_tracer()
+        if args.trace and not was_on:
+            obs.disable()
+    if args.trace:
+        tracer.save(args.trace)
+        stats_out["trace"] = tracer
+        print(f"[peel] trace: {len(tracer.events)} events -> {args.trace}")
+    return stats_out
+
+
+def _run(args, g) -> dict:
     from ..core.graph import paper_proxy_dataset, powerlaw_bipartite
     from ..core.peel import tip_decomposition, wing_decomposition
 
-    _validate(args)
     seconds: dict = {}
     sup0 = tiled = None
     if args.edges:
@@ -199,6 +224,9 @@ def run(args, g=None) -> dict:
     seconds.update(res.seconds)
     theta = res.theta
     stats_out = s.as_dict()
+    if res.timeline is not None:
+        stats_out["timeline"] = res.timeline.summary()
+        print(f"[peel] timeline: {stats_out['timeline']}")
     stats_out["theta_sha256"] = sha256_int64(theta)
     print(f"[peel] theta: max={int(theta.max()) if theta.size else 0} "
           f"levels={len(set(theta.tolist()))} "
@@ -272,6 +300,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "decomposition and save it as a versioned npz "
                          "artifact (repro_torch.hierarchy.load_hierarchy; "
                          "the JAX package loads it too)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="turn the observability layer on and write a "
+                         "Chrome-trace JSON of the run (open in Perfetto "
+                         "/ chrome://tracing): peel/cd/fd spans, per-round "
+                         "cd.round/fd.round events, hierarchy build "
+                         "spans.  Off by default, and off changes nothing")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
