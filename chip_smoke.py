@@ -97,6 +97,27 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    epoch, the forest at the last, each epoch's report beside the
    re-peel's seconds; then ``python -m repro_torch.launch.stream
    --dryrun`` in its own process.
+11. multitenant — the multi-tenant hierarchy service
+   (``repro_torch.hierarchy.pool`` / ``multiserve``, ``launch.hserve``):
+   the small fixed tenant set of ``tests/goldens/torch_multiserve.json``
+   (recorded by ``tests/goldens/record_torch_multiserve.py``, replayed by
+   ``tests/goldens/multiserve_replay.py``) to its buckets, stats,
+   dispatch signatures and answers' sha256; 8 tip
+   (``powerlaw_bipartite(2_000, 1_000, 15_000)``) and 8 wing (``(600,
+   400, 3_000)``) graphs peeled on the card with the fused FD rounds
+   (``fd_round_tip``, ``fd_round_wing``), θ and stats held bit for bit to
+   the same peels on the CPU (the rounds' plain versions), and built into
+   forests; with
+   phase 7's five artifacts, 64 tenants cycling the 21 decompositions,
+   tip-1m pinned; 50 000 mixed queries over all 64 through a 32-slot pool
+   at batch 1 024 (cold) and 4 096 (warm), every answer held to a
+   per-tenant ``HierarchyService``, the dispatch signatures and the
+   pinned tenant checked chunk by chunk; the ``slot_upload`` A/B; one
+   ``HierarchyService`` on tip-1m as a yardstick; the CLI (200 000
+   queries at batch 4 096, ``--metrics --trace --out``, its checksum held
+   to the oracle) and ``--dryrun`` (storage and uploads unmoved by a
+   cold same-bucket load, no host sync in a dispatch) in their own
+   processes.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -1227,8 +1248,9 @@ def serve_artifact(realdata, name, art, dev, seconds) -> None:
         f"queries served in {dt * 1e3:.1f} ms, answers equal")
 
 
-def phase_real_graphs(realdata, dev, tmp, launches) -> dict:
-    """Phase 7; returns the seconds of each step per run."""
+def phase_real_graphs(realdata, dev, tmp, launches):
+    """Phase 7; returns the seconds of each step per run and the
+    artifacts it wrote ({name: path})."""
     from repro_torch.core import csr
     from repro_torch.data import load_ingested
     from repro_torch.kernels import ops
@@ -1299,7 +1321,7 @@ def phase_real_graphs(realdata, dev, tmp, launches) -> dict:
 
     for name, art in arts.items():
         serve_artifact(realdata, name, art, dev, seconds)
-    return seconds
+    return seconds, arts
 
 
 # ---------------------------------------------------------------------
@@ -1886,17 +1908,20 @@ def main() -> int:
     with open(os.path.join(ROOT, "tests", "goldens",
                            "torch_stream.json")) as f:
         streams = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_multiserve.json")) as f:
+        mt_golden = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
-        return run_phases(fullsize, realdata, engines, lm_golden, streams, dev,
-                          smi, tmp)
+        return run_phases(fullsize, realdata, engines, lm_golden, streams,
+                          mt_golden, dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(fullsize, realdata, engines, lm_golden, streams, dev, smi,
-               tmp) -> int:
+def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
+               dev, smi, tmp) -> int:
     import torch
 
     with Phase("1-setup"):
@@ -1965,7 +1990,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, dev, smi,
     cache.clear()
 
     with Phase("7-real-graphs"):
-        real_seconds = phase_real_graphs(realdata, dev, tmp, launches)
+        real_seconds, arts = phase_real_graphs(realdata, dev, tmp, launches)
 
     with Phase("8-engines"):
         engine_rows, engine_seconds = phase_engines(engines, fullsize, dev,
@@ -1977,6 +2002,14 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, dev, smi,
 
     with Phase("10-stream"):
         stream_info = phase_stream(streams, fullsize, dev, launches)
+
+    with Phase("11-multitenant"):
+        mt_info = phase_multitenant(mt_golden, arts, dev, tmp, smi)
+        for k in ("fd_round_tip", "fd_round_wing"):
+            if mt_info["launches"].get(k, 0) == 0:
+                raise AssertionError(f"the tenants' peels launched no {k}")
+        for k, v in mt_info["launches"].items():
+            launches[k] = launches.get(k, 0) + v
 
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
@@ -2002,7 +2035,8 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, dev, smi,
                         fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
                         engine_seconds=engine_seconds, lm=lm_info,
-                        traced_tip_1m=trace_info, stream=stream_info)))
+                        traced_tip_1m=trace_info, stream=stream_info,
+                        multitenant=mt_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -2274,6 +2308,438 @@ def phase_fd_drivers(fullsize, dev, cache) -> dict:
         log(f"[smoke]   {name}: every FD driver matches the JAX package; "
             f"FD seconds by driver: {times}")
     return out
+
+
+# ---------------------------------------------------------------------
+# phase 11: the multi-tenant hierarchy service
+# ---------------------------------------------------------------------
+# benchmarks/serve.py's deployment (64 tenant artifacts cycling distinct
+# decompositions behind one endpoint) at forest sizes users serve: the
+# phase's own 16 tip and wing graphs, peeled on the card with the fused
+# FD rounds, and phase 7's five artifacts (tip-1m first, so tenant t00
+# is the pinned 100 000-entity forest).  A 32-slot pool, so tenants
+# churn through the LRU cache mid-stream; the stream walks windows of
+# ``window`` tenants (t00 in every one) ``stride`` tenants at a time,
+# one segment of ``queries / segments`` queries each, so no dispatch
+# chunk touches more tenants than the pool holds.
+MT = dict(
+    graphs=dict(tip=dict(n_u=2_000, n_v=1_000, m=15_000, alpha=0.6),
+                wing=dict(n_u=600, n_v=400, m=3_000, alpha=0.6)),
+    seeds=8, P=16, tenants=64, slots=32, queries=50_000, segments=10,
+    window=16, stride=8, batches=(1024, 4096),
+    cli_batch=4096, cli_queries=200_000,
+    reused=("tip-1m", "wing-60k", "tip-60k", "southern_women-wing",
+            "southern_women-tip"),
+)
+
+
+def load_module(name, path):
+    """The Python file at ``path`` as a module named ``name``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def port_peel(dev):
+    """``peel(nu, nv, m, seed, P)`` → (graph, wing result) on ``dev``,
+    as ``multiserve_replay.write_tenants`` takes it."""
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.core.peel import wing_decomposition
+
+    def peel(nu, nv, m, seed, P):
+        g = powerlaw_bipartite(nu, nv, m, seed=seed)
+        return g, wing_decomposition(g, P=P, engine="csr", device=dev)
+    return peel
+
+
+def multiserve_golden(golden, dev, tmp) -> dict:
+    """The small fixed tenant set of ``tests/goldens/torch_multiserve.json``
+    replayed through the port on ``dev`` (``multiserve_replay.py``, the
+    replay the JAX recorder ran); every recorded field must equal the JAX
+    package's."""
+    from repro_torch.hierarchy import (ForestPool, MultiTenantService,
+                                       build_hierarchy, multiserve,
+                                       save_hierarchy)
+    from repro_torch.launch.hserve import _mixed_workload
+
+    rec = load_module("multiserve_replay", os.path.join(
+        ROOT, "tests", "goldens", "multiserve_replay.py"))
+    recipe = golden["recipe"]
+    d = os.path.join(tmp, "multiserve_golden")
+    os.makedirs(d, exist_ok=True)
+    rec.write_tenants(recipe, d, port_peel(dev),
+                      lambda g, r: build_hierarchy(g, r, device=dev),
+                      save_hierarchy)
+    multiserve.reset_dispatch_count()
+    pool = ForestPool(slots=recipe["slots"], artifact_dir=d, device=dev)
+    svc = MultiTenantService(pool, batch=recipe["batch"])
+    got = rec.replay(recipe, pool, svc, _mixed_workload)
+    got["compiled_dispatch_count"] = multiserve.compiled_dispatch_count()
+    expect("multiserve golden", "record", got,
+           {k: golden[k] for k in got})
+    return got
+
+
+def mt_peel(mt, dev):
+    """The phase's own decompositions, peeled on ``dev`` with the fused
+    FD rounds (``fd_round_tip`` / ``fd_round_wing``) and built into
+    forests.  Launch counts are zeroed just before and read just after.
+    Then each graph is peeled again on the CPU, where the same driver
+    runs the rounds' plain versions (``ref.fd_round_*_ref``) on the same
+    inputs: θ and ``PeelStats`` must be equal bit for bit.  Returns
+    ({name: Hierarchy}, launch counts, seconds of the peels on ``dev``,
+    seconds of the plain peels)."""
+    import numpy as np
+
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.core.peel import tip_decomposition, wing_decomposition
+    from repro_torch.hierarchy import build_hierarchy
+    from repro_torch.kernels import ops
+
+    def peel_all(device):
+        for kind, graph in mt["graphs"].items():
+            peel = tip_decomposition if kind == "tip" else wing_decomposition
+            for s in range(mt["seeds"]):
+                g = powerlaw_bipartite(**graph, seed=s)
+                yield kind, s, g, peel(g, P=mt["P"], engine="csr",
+                                       fused=True, device=device)
+
+    hs, got = {}, {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for kind, s, g, res in peel_all(dev):
+        hs[f"{kind}{s}"] = build_hierarchy(g, res, kind=kind, device=dev)
+        got[f"{kind}{s}"] = res
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    for kind, s, _, want in peel_all("cpu"):
+        res = got[f"{kind}{s}"]
+        if not (np.array_equal(np.asarray(res.theta), np.asarray(want.theta))
+                and res.stats == want.stats):
+            raise AssertionError(
+                f"{kind}{s}: the fused peel on {dev} differs from the plain "
+                f"rounds' on the CPU: stats {res.stats} != {want.stats} or θ")
+    return hs, counts, dt, time.perf_counter() - t0
+
+
+def mt_layout(mt, hs, arts, tmp):
+    """Every decomposition's artifact, and ``mt["tenants"]`` tenant
+    artifacts cycling them.  Returns (tenant directory, {tenant:
+    decomposition}, {decomposition: artifact path})."""
+    from repro_torch.hierarchy import save_hierarchy
+
+    d = os.path.join(tmp, "tenants")
+    own = os.path.join(tmp, "decompositions")
+    os.makedirs(d)
+    os.makedirs(own)
+    src = {name: arts[name] for name in mt["reused"]}
+    for name, h in hs.items():
+        src[name] = os.path.join(own, f"{name}.npz")
+        save_hierarchy(src[name], h)
+    order = [mt["reused"][0], *hs, *mt["reused"][1:]]
+    of = {}
+    for i in range(mt["tenants"]):
+        t = f"t{i:02d}"
+        of[t] = order[i % len(order)]
+        shutil.copyfile(src[of[t]], os.path.join(d, f"{t}.npz"))
+    return d, of, src
+
+
+def mt_oracle(svcs, of, t_col, ops, a, b):
+    """Each slot answered by its decomposition's own ``HierarchyService``:
+    one batched call per decomposition, not one per slot."""
+    import numpy as np
+
+    name = np.array([of[t] for t in t_col])
+    want = np.full(len(t_col), -2, np.int32)
+    for key, svc in svcs.items():
+        m = name == key
+        if m.any():
+            want[m] = svc.query_batch(ops[m], a[m], b[m])
+    return want
+
+
+def mt_stream(mt, pool):
+    """The in-process stream: segment k draws ``queries / segments``
+    mixed queries (the CLI's seeded ``_mixed_workload``, seed k) over t00
+    and ``window`` tenants starting at ``k * stride``.  ``pool`` has
+    loaded every tenant once (it keeps an evicted tenant's dims)."""
+    import numpy as np
+
+    from repro_torch.launch.hserve import _mixed_workload
+
+    tenants = sorted(pool.meta)
+    rest = tenants[1:]
+    n = mt["queries"] // mt["segments"]
+    parts = []
+    for k in range(mt["segments"]):
+        window = [tenants[0]] + [rest[(k * mt["stride"] + j) % len(rest)]
+                                 for j in range(mt["window"])]
+        parts.append(_mixed_workload(pool, window, n, seed=k))
+    t_col = [t for p in parts for t in p[0]]
+    if set(t_col) != set(tenants):
+        raise AssertionError("the stream misses tenants: "
+                             f"{sorted(set(tenants) - set(t_col))}")
+    return (t_col, *(np.concatenate([p[i] for p in parts])
+                     for i in (1, 2, 3)))
+
+
+def mt_serve(pool, stream, want, batch, pinned):
+    """Serve ``stream`` through ``pool`` in ``batch``-query calls, every
+    answer held to ``want``.  Chunk by chunk: the dispatch-signature
+    count must equal the distinct (bucket, capacity) pairs dispatched
+    since the count was reset (nothing else varies), so a cold load into
+    a bucket that did not grow adds none, and ``pinned`` keeps its slot.
+    (The dry-run holds such a load to the bucket's storage and uploads.)
+    Returns the row (metrics of this run alone)."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.hierarchy import MultiTenantService, multiserve
+
+    t_col, ops, a, b = stream
+    pool.metrics = obs.MetricsRegistry()
+    svc = MultiTenantService(pool, batch=batch)
+    multiserve.reset_dispatch_count()
+    before = pool.stats()
+    pin_slot = pool.meta[pinned].slot
+    seen = set()
+    got = np.zeros(len(t_col), np.int32)
+    cold_same = grew = 0
+    sync(pool.device)
+    t0 = time.perf_counter()
+    for lo in range(0, len(t_col), batch):
+        hi = min(lo + batch, len(t_col))
+        caps = {k: bk.cap for k, bk in pool.buckets.items()}
+        cold = {t for t in t_col[lo:hi] if not pool.resident(t)}
+        got[lo:hi] = svc.query_batch(t_col[lo:hi], ops[lo:hi], a[lo:hi],
+                                     b[lo:hi])
+        keys = {pool.meta[t].bucket for t in set(t_col[lo:hi])}
+        seen |= {(k, pool.buckets[k].cap) for k in keys}
+        if multiserve.compiled_dispatch_count() != len(seen):
+            raise AssertionError(
+                f"{multiserve.compiled_dispatch_count()} dispatch "
+                f"signatures for {len(seen)} (bucket, capacity) pairs")
+        steady = {k for k, c in caps.items() if pool.buckets[k].cap == c}
+        grew += len(caps) - len(steady)
+        cold_same += sum(pool.meta[t].bucket in steady for t in cold)
+        if not pool.resident(pinned) or pool.meta[pinned].slot != pin_slot:
+            raise AssertionError(f"pinned {pinned} lost its slot")
+    sync(pool.device)
+    dt = time.perf_counter() - t0
+    bad = np.flatnonzero(got != want)
+    if bad.size:
+        i = int(bad[0])
+        raise AssertionError(
+            f"batch {batch}: {bad.size} answers differ from the per-tenant "
+            f"HierarchyService, first at {i}: tenant {t_col[i]} op "
+            f"{int(ops[i])} a {int(a[i])} b {int(b[i])}: {int(got[i])} != "
+            f"{int(want[i])}")
+    snap = pool.metrics.snapshot()
+    return dict(
+        batch=batch, queries=len(t_col), seconds=round(dt, 4),
+        qps=round(len(t_col) / dt, 1), dispatches=svc.dispatches,
+        slots_padded=snap["serve.slots_padded"]["value"],
+        signatures=multiserve.compiled_dispatch_count(),
+        buckets=len(pool.buckets), grown=grew,
+        cold_same_bucket_loads=cold_same,
+        dispatch_ms=hist_row(pool.metrics, "serve.dispatch_ms"),
+        load_ms=hist_row(pool.metrics, "pool.load_ms"),
+        stats={k: pool.stats()[k] - before[k]
+               for k in ("hits", "misses", "evictions")})
+
+
+def hist_row(metrics, name) -> dict:
+    """Count, p50, p99 and mean of a latency histogram (count 0 before
+    its first sample)."""
+    h = metrics.get(name)
+    if h is None:
+        return dict(count=0)
+    s = h.snapshot()
+    return {k: s[k] for k in ("count", "p50_ms", "p99_ms", "mean_ms")}
+
+
+def mt_upload_ab(mt, tenant_dir, svcs, of, dev) -> dict:
+    """The ``slot_upload`` A/B: in each mode a pool warms the first
+    ``slots`` tenants and dispatches once for each (every bucket on the
+    device), then admits the other tenants one at a time, each by one
+    query (a cold load and an eviction).  Per admission the slot mode
+    copies one slot row (``pool.admission_upload_ms``), the bucket mode
+    re-uploads the bucket at the next dispatch
+    (``pool.bucket_upload_ms``).  Every answer held to the oracle."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.hierarchy import ForestPool, MultiTenantService
+
+    tenants = sorted(of)
+    one = np.zeros(1, np.int32)
+    out = {}
+    for mode, su in (("slot", True), ("bucket", False)):
+        pool = ForestPool(slots=mt["slots"], artifact_dir=tenant_dir,
+                          slot_upload=su, device=dev)
+        pool.pin(tenants[0])
+        svc = MultiTenantService(pool, batch=mt["batches"][0])
+        for t in tenants[:mt["slots"]]:
+            svc.query_batch([t], one, one)
+        pool.metrics = svc.metrics = obs.MetricsRegistry()
+        for t in tenants[mt["slots"]:]:
+            got = svc.query_batch([t], one, one)
+            want = svcs[of[t]].query_batch(one, one)
+            expect(f"upload A/B {mode}", f"{t} max_k(0)", int(got[0]),
+                   int(want[0]))
+        out[mode] = {name: hist_row(pool.metrics, f"pool.{name}")
+                     for name in ("admission_upload_ms", "bucket_upload_ms",
+                                  "load_ms")}
+    return out
+
+
+def mt_single_tenant(svc, queries, batch) -> float:
+    """q/s of one ``HierarchyService`` answering ``queries`` mixed
+    queries (``query_batch_inputs``, seed 0) ``batch`` at a time."""
+    f = svc.forest
+    ops, a, b = query_batch_inputs(f.n_entities, f.n_nodes, queries, 0)
+    sync(f.device)
+    t0 = time.perf_counter()
+    for lo in range(0, queries, batch):
+        svc.query_batch(ops[lo:lo + batch], a[lo:lo + batch],
+                        b[lo:lo + batch])
+    sync(f.device)
+    return round(queries / (time.perf_counter() - t0), 1)
+
+
+def hserve_process(argv, timeout=900):
+    """``python -m repro_torch.launch.hserve ARGV`` in its own process;
+    returns (stdout, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.hserve", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launch.hserve {' '.join(argv)} failed (rc "
+                             f"{out.returncode}): {out.stdout[-2000:]}"
+                             f"{out.stderr[-3000:]}")
+    for line in out.stdout.splitlines():
+        if line.startswith("[hserve"):
+            log(f"[smoke]   {line}")
+    return out.stdout, round(dt, 3)
+
+
+def mt_cli(mt, tenant_dir, pool, svcs, of, dev, tmp) -> dict:
+    """The CLI in its own process at ``--pool-slots`` tenants; its answer
+    checksum held to the oracle on the same seeded workload (drawn over
+    ``pool``'s tenant dims), its metrics snapshot and trace read back."""
+    import numpy as np
+
+    from repro_torch.launch.hserve import _mixed_workload
+
+    paths = {k: os.path.join(tmp, f"hserve_{k}.json")
+             for k in ("out", "metrics", "trace")}
+    _, dt = hserve_process(
+        ["--artifact-dir", tenant_dir, "--pool-slots", str(mt["slots"]),
+         "--batch", str(mt["cli_batch"]), "--queries",
+         str(mt["cli_queries"]), "--device", dev,
+         *(x for k, p in paths.items() for x in (f"--{k}", p))])
+    with open(paths["out"]) as f:
+        out = json.load(f)
+    with open(paths["metrics"]) as f:
+        snap = json.load(f)
+    with open(paths["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    warm = sorted(of)[:mt["slots"]]
+    t_col, ops, a, b = _mixed_workload(pool, warm, mt["cli_queries"])
+    want = int(mt_oracle(svcs, of, t_col, ops, a, b).astype(np.int64).sum())
+    expect("hserve CLI", "served, tenants, checksum",
+           (out["served"], out["n_tenants"], out["answers_checksum"]),
+           (mt["cli_queries"], mt["slots"], want))
+    spans = sum(e["name"] == "serve.dispatch" for e in events)
+    expect("hserve CLI", "serve.dispatch spans",
+           spans, snap["serve.dispatches"]["value"])
+    return dict(seconds=dt, qps=round(out["qps"], 1),
+                dispatches=snap["serve.dispatches"]["value"],
+                dispatch_ms={k: snap["serve.dispatch_ms"][k]
+                             for k in ("count", "p50_ms", "p99_ms")},
+                trace_events=len(events),
+                stats={k: out[k] for k in ("hits", "misses", "evictions",
+                                           "resident")})
+
+
+def phase_multitenant(golden, arts, dev, tmp, smi, mt=MT) -> dict:
+    """Phase 11: tenants peeled on the card, laid out as ``mt["tenants"]``
+    artifacts, then served: the golden's small fixed set, the in-process
+    stream at each batch size, the upload A/B, a single-tenant yardstick,
+    the CLI and its dry-run.  Returns the numbers and the launch counts
+    of the peels."""
+    from repro_torch.hierarchy import (ForestPool, HierarchyService,
+                                       load_hierarchy)
+
+    info = dict(golden=multiserve_golden(golden, dev, tmp))
+    log(f"[smoke]   multiserve golden: {golden['recipe']['tenants']} "
+        f"tenants, {len(golden['buckets'])} buckets, stats, dispatch "
+        f"signatures ({golden['compiled_dispatch_count']}) and the answers' "
+        f"sha256 equal the JAX package's")
+    hs, counts, dt, plain_dt = mt_peel(mt, dev)
+    info.update(peel_seconds=round(dt, 3), plain_peel_seconds=round(
+        plain_dt, 3), launches={k: v for k, v in counts.items() if v})
+    log(f"[smoke]   {len(hs)} tenant graphs peeled (csr, fused FD, P="
+        f"{mt['P']}) and built on {dev} in {dt:.2f} s; launches "
+        f"{info['launches']}; θ and stats equal to the plain rounds' peels "
+        f"on the CPU ({plain_dt:.2f} s)")
+    tenant_dir, of, src = mt_layout(mt, hs, arts, tmp)
+    svcs = {name: HierarchyService(load_hierarchy(path), device=dev)
+            for name, path in src.items()}
+    pinned = sorted(of)[0]
+    pool = ForestPool(slots=mt["slots"], artifact_dir=tenant_dir, device=dev)
+    pool.pin(pinned)
+    for t in sorted(of):                    # every tenant's dims, on the host
+        pool.ensure(t)
+    stream = mt_stream(mt, pool)
+    want = mt_oracle(svcs, of, *stream)
+    rows = []
+    for batch in mt["batches"]:
+        # the first batch size starts the pool cold; the next finds it warm
+        rows.append(mt_serve(pool, stream, want, batch, pinned))
+        r = rows[-1]
+        log(f"[smoke]   {len(of)} tenants ({len(src)} decompositions, "
+            f"{r['buckets']} buckets), {mt['slots']} slots, batch {batch}: "
+            f"{r['queries']} queries in {r['seconds']:.3f} s = {r['qps']:.0f}"
+            f" q/s ({smi}); all equal to the per-tenant HierarchyService; "
+            f"{r['dispatches']} dispatches, {r['slots_padded']} padded "
+            f"slots; serve.dispatch_ms {r['dispatch_ms']}; pool.load_ms "
+            f"{r['load_ms']}; {r['signatures']} dispatch signatures "
+            f"({r['grown']} capacity steps), "
+            f"{r['cold_same_bucket_loads']} cold same-bucket loads added "
+            f"none; cache {r['stats']}")
+    info["serve"] = rows
+    if rows[-1]["signatures"] != rows[-1]["buckets"]:
+        raise AssertionError(f"{rows[-1]['signatures']} dispatch signatures "
+                             f"on the warm pool for {rows[-1]['buckets']} "
+                             f"buckets")
+    info["upload_ab"] = mt_upload_ab(mt, tenant_dir, svcs, of, dev)
+    log(f"[smoke]   slot_upload A/B {info['upload_ab']} ({smi})")
+    info["single_tenant_qps"] = {
+        batch: mt_single_tenant(
+            HierarchyService(svcs[of[pinned]].forest, batch=batch),
+            mt["queries"], batch)
+        for batch in mt["batches"]}
+    log(f"[smoke]   yardstick: one HierarchyService on {of[pinned]}, "
+        f"{mt['queries']} queries: q/s by batch "
+        f"{info['single_tenant_qps']} ({smi})")
+    info["cli"] = mt_cli(mt, tenant_dir, pool, svcs, of, dev, tmp)
+    log(f"[smoke]   hserve CLI: {mt['cli_queries']} queries at batch "
+        f"{mt['cli_batch']}, checksum equal to the oracle's: "
+        f"{info['cli']} ({smi})")
+    _, info["dryrun_s"] = hserve_process(["--dryrun", "--device", dev])
+    return info
 
 
 if __name__ == "__main__":

@@ -8,8 +8,15 @@
   the JAX package.
 * :mod:`serve`     — :class:`HierarchyService`, a slot-batched query
   engine over device tensors.
+* :mod:`pool`      — :class:`ForestPool`, many tenants' forests stacked
+  into shape-bucketed device tensors behind an LRU artifact cache.
+* :mod:`multiserve` — :class:`MultiTenantService`, cross-tenant
+  slot-batched mixed-op serving: one dispatch signature per shape
+  bucket, counted.
 """
 from .build import Hierarchy, build_hierarchy
+from .multiserve import MTQuery, MultiTenantService
+from .pool import ForestPool, PoolFull
 from .query import (
     PackedForest,
     density_profile,
@@ -46,4 +53,8 @@ __all__ = [
     "OPS",
     "depth_and_up",
     "extend_up",
+    "ForestPool",
+    "PoolFull",
+    "MTQuery",
+    "MultiTenantService",
 ]

@@ -659,3 +659,44 @@ def test_serving_engine_on_the_card(card):
         eng.submit(Request(uid=i, prompt=[1 + i, 2, 3], max_new=4))
     done = eng.run()
     assert [len(r.output) for r in done] == [4, 4, 4]
+
+
+def test_multitenant_service_on_the_card(card, tmp_path):
+    """``ForestPool`` / ``MultiTenantService`` with ``device="cuda"``
+    answer a mixed-tenant batch as on the CPU, through cold loads into
+    device-resident buckets and evictions, and a dispatch queues its
+    copies and gathers without a host synchronisation (sync debug mode
+    ``error``) before its result copy."""
+    from repro_torch.hierarchy import (ForestPool, MultiTenantService,
+                                       build_hierarchy, save_hierarchy)
+    from repro_torch.launch.hserve import (_check_no_host_sync, _chunk_cols,
+                                           _mixed_workload)
+
+    for i in range(6):
+        g = powerlaw_bipartite(*((40, 28, 120) if i % 3 else (12, 8, 24)),
+                               seed=i)
+        res = peel.wing_decomposition(g, P=4, engine="csr", device=card)
+        save_hierarchy(str(tmp_path / f"t{i}.npz"),
+                       build_hierarchy(g, res, device=card))
+    tenants = [f"t{i}" for i in range(6)]
+    answers = {}
+    for dev in ("cpu", card):
+        pool = ForestPool(slots=4, artifact_dir=str(tmp_path), device=dev)
+        svc = MultiTenantService(pool, batch=64)
+        got = []
+        for k in range(3):
+            window = tenants[k:k + 3]
+            for t in window:
+                pool.ensure(t)
+            got.append(svc.query_batch(*_mixed_workload(
+                pool, window, 300, seed=k)))
+        answers[str(dev)] = np.concatenate(got)
+        assert pool.stats()["evictions"] > 0
+    np.testing.assert_array_equal(answers["cpu"], answers[str(card)])
+    mixes = {}
+    for key in pool.buckets:
+        members = [t for t in pool.tenants() if pool.meta[t].bucket == key]
+        mixes[key] = [_chunk_cols(svc, *_mixed_workload(pool, members, 32,
+                                                        seed=s))
+                      for s in (0, 1)]
+    assert "sync_debug" in _check_no_host_sync(svc, pool, mixes)
