@@ -118,6 +118,27 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    to the oracle) and ``--dryrun`` (storage and uploads unmoved by a
    cold same-bucket load, no host sync in a dispatch) in their own
    processes.
+12. distributed — the distributed peel (``repro_torch.core.
+   distributed``) on ``torch.distributed``.  World 1 on NCCL in this
+   process (1-D ``("peel",)`` mesh): every cell of
+   ``tests/goldens/torch_distributed.json`` (recorded by
+   ``tests/goldens/record_torch_distributed.py`` on 8 JAX devices; θ,
+   partition, ranges, ⋈init, stats), then tip-1m (csr, vertex-aligned),
+   the 60k graph as wing (csr pair-aligned, beindex bloom-aligned, and
+   csr on the (1, 1) ``("grp", "loc")`` mesh) and as tip (csr aligned,
+   device and vmapped FD), and dense-16k (dense), each with the obs
+   layer on: θ held to ``torch_fullsize.json`` / ``torch_engines.json``,
+   the module's collectives counted (ρ_cd × 1 or 2, the dense recount 3
+   a round; none in FD), no kernel launched, and the seconds of spec,
+   CD (``cd.round`` spans) and FD.  Then the peel CLI's ``run`` on four
+   gloo ranks sharing the card (``torch.distributed.run``,
+   ``distributed_replay.py --graph``), the 60k graph as wing and tip
+   with ``--aligned``: θ, stats and the ``--emit-hierarchy`` artifact's
+   partition, ranges and ⋈init equal to world 1.  Then ``launch.peel
+   --dryrun`` in its own process (512 fake ranks, CPU), and
+   ``csr.edge_butterflies_csr(use_pallas=True)`` on the 60k graph's
+   wedge list (all alive and a seeded mask): ``wedge_count`` launches
+   and the result is ``torch.equal`` to the plain route.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -2011,6 +2032,9 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
         for k, v in mt_info["launches"].items():
             launches[k] = launches.get(k, 0) + v
 
+    with Phase("12-distributed"):
+        dist_info = phase_distributed(fullsize, engines, dev, tmp, launches)
+
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -2036,7 +2060,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                         real_graph_seconds=real_seconds,
                         engine_seconds=engine_seconds, lm=lm_info,
                         traced_tip_1m=trace_info, stream=stream_info,
-                        multitenant=mt_info)))
+                        multitenant=mt_info, distributed=dist_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -2739,6 +2763,293 @@ def phase_multitenant(golden, arts, dev, tmp, smi, mt=MT) -> dict:
         f"{mt['cli_batch']}, checksum equal to the oracle's: "
         f"{info['cli']} ({smi})")
     _, info["dryrun_s"] = hserve_process(["--dryrun", "--device", dev])
+    return info
+
+
+# ---------------------------------------------------------------------
+# phase 12: the distributed peel (torch.distributed)
+# ---------------------------------------------------------------------
+# the 60k graph's four-rank CLI runs: (label, CLI flags); each is held to
+# the world-1 run of the same kind
+DIST_CLI = (("wing", ["--kind", "wing", "--engine", "csr"]),
+            ("tip", ["--kind", "tip"]))
+
+
+def dist_run(label, fn, g, mesh, axis, kw, want_theta, per_round, dev,
+             dense=False, vmapped=False) -> dict:
+    """One world-1 distributed decomposition with the obs layer on (for
+    the ``cd.round`` span seconds): θ's sha256 held to the golden, the
+    collectives counted (``per_round`` a CD round, the dense recount 3
+    a round and 3 at ⋈init; none in FD; one result gather, none for the
+    vmapped tip FD) and no kernel launched (the distributed bodies are
+    segment sums, as the JAX package's).  Returns θ, stats, the
+    PeelResult and the seconds."""
+    from repro_torch import obs
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    D.reset_collective_counts()
+    tracer = obs.enable()
+    try:
+        t0 = time.perf_counter()
+        theta, stats, res = fn(g, mesh, axis=axis, **kw, return_result=True)
+        sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    expect(label, "theta sha256", sha_int64(theta), want_theta)
+    rho = stats["rho_cd"]
+    expect(label, "collectives", D.collective_counts(), dict(
+        cd=3 * (rho + 1) if dense else per_round * rho, fd=0,
+        result=0 if vmapped else 1))
+    expect(label, "kernel launches", sum(ops.launch_counts().values()), 0)
+    expect(label, "cd.round spans", tracer.count("cd.round", ph="X"), rho)
+    secs = dict(total=round(dt, 3),
+                **{k: round(v, 3) for k, v in res.seconds.items()},
+                cd_round=round(sum(e["dur"] for e in tracer.spans(
+                    "cd.round", ph="X")) / 1e6, 3))
+    log(f"[smoke]   {label}: θ equals the JAX package's; rho_cd {rho}, "
+        f"rho_fd_max {stats['rho_fd_max']}, collectives "
+        f"{D.collective_counts()}; seconds {secs}")
+    return dict(theta=theta, stats=stats, res=res, seconds=secs, rho_cd=rho)
+
+
+def dist_cli(label, flags, graph, want, tmp) -> dict:
+    """The peel CLI's ``run`` on four gloo ranks sharing the card
+    (``torch.distributed.run``, ``distributed_replay.py --graph``): θ,
+    every stat but n_dev, and the artifact's partition, ranges and ⋈init
+    equal to the world-1 run ``want``; rank 0's ``--trace`` gives the
+    CD rounds' seconds.  Returns the seconds and the span split."""
+    import numpy as np
+
+    from repro_torch.hierarchy import load_hierarchy
+
+    out = os.path.join(tmp, f"dist4-{label}.json")
+    art = os.path.join(tmp, f"dist4-{label}.npz")
+    trace = os.path.join(tmp, f"dist4-{label}.trace.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4",
+         os.path.join(ROOT, "tests", "goldens", "distributed_replay.py"),
+         "--graph", *(str(graph[k]) for k in ("n_u", "n_v", "m", "alpha",
+                                             "seed")),
+         *flags, "--aligned", "--parts", "16", "--backend", "gloo",
+         "--device", "cuda", "--out", out, "--emit-hierarchy", art,
+         "--trace", trace],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    dt = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"4-rank {label} failed (rc {p.returncode}): "
+                             f"{p.stdout[-2000:]}{p.stderr[-3000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    name = f"4 gloo ranks, {label}"
+    expect(name, "theta", got["theta"], np.asarray(want["theta"]).tolist())
+    drop = ("n_dev", "timeline", "theta_sha256")
+    expect(name, "stats", {k: v for k, v in got["stats"].items()
+                           if k not in drop},
+           {k: v for k, v in want["stats"].items() if k not in drop})
+    expect(name, "n_dev", got["stats"]["n_dev"], 4)
+    h = load_hierarchy(art)
+    for key in ("part", "ranges", "support_init"):
+        expect(name, key, np.asarray(h.meta[key]).tolist(),
+               np.asarray(getattr(want["res"], key)).tolist())
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    secs = {cat: round(sum(e["dur"] for e in events if e.get("cat") == cat
+                           and e.get("ph") == "X") / 1e6, 4)
+            for cat in ("cd", "cd.round", "fd")}
+    n_rounds = sum(1 for e in events
+                   if e.get("cat") == "cd.round" and e.get("ph") == "X")
+    expect(name, "cd.round spans", n_rounds, got["stats"]["rho_cd"])
+    info = dict(seconds=round(dt, 3), span_seconds=secs,
+                cd_round_ms=round(1e3 * secs["cd.round"] / max(n_rounds, 1),
+                                  3))
+    log(f"[smoke]   {name} (CLI, gloo on one card, --trace): θ, stats, "
+        f"partition, ranges and ⋈init equal the world-1 run; {info}")
+    return info
+
+
+def dist_dryrun() -> float:
+    """``python -m repro_torch.launch.peel --dryrun`` in its own process
+    (CPU, a 512-rank fake process group); returns its seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.peel", "--dryrun"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if p.returncode != 0 or "all structural checks passed" not in p.stdout:
+        raise AssertionError(f"launch.peel --dryrun failed (rc "
+                             f"{p.returncode}): {p.stdout[-2000:]}"
+                             f"{p.stderr[-3000:]}")
+    for line in p.stdout.splitlines():
+        log(f"[smoke]   {line}")
+    return round(dt, 3)
+
+
+def edge_butterflies_route(wed, dev, launches) -> dict:
+    """``csr.edge_butterflies_csr`` through ``wedge_count``
+    (``use_pallas``) on the 60k graph's wedge list, all alive and under
+    a seeded alive mask: ``torch.equal`` to the plain route (and, all
+    alive, to ``edge_butterflies0``); the kernel must launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import csr
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(12)
+    info = {}
+    for label, alive in (("all alive", None), ("seeded mask", torch.from_numpy(
+            rng.random(wed.m) > 0.3).to(dev))):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = csr.edge_butterflies_csr(wed, alive, use_pallas=True,
+                                       device=dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        counts = ops.launch_counts()
+        if counts["wedge_count"] == 0:
+            raise AssertionError("edge_butterflies_csr(use_pallas=True) "
+                                 "launched no wedge_count")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        want = csr.edge_butterflies_csr(wed, alive, device=dev)
+        sync(dev)
+        t2 = time.perf_counter()
+        if not torch.equal(got, want):
+            raise AssertionError(f"edge_butterflies_csr {label}: the "
+                                 "wedge_count route differs from the plain")
+        if alive is None and not np.array_equal(got.cpu().numpy(),
+                                                csr.edge_butterflies0(wed)):
+            raise AssertionError("edge_butterflies_csr != edge_butterflies0")
+        info[label] = dict(kernel_route_s=round(t1 - t0, 4),
+                           plain_route_s=round(t2 - t1, 4),
+                           wedge_count=counts["wedge_count"])
+        log(f"[smoke]   edge_butterflies_csr ({label}, {wed.n_wedges} "
+            f"wedges): wedge_count route equals the plain route; "
+            f"{info[label]}")
+    return info
+
+
+def phase_distributed(fullsize, engines, dev, tmp, launches) -> dict:
+    """World 1 on NCCL, in this process: every small golden cell, then
+    tip-1m, the 60k graph (wing csr and beindex, tip device and vmapped,
+    the (1, 1) mesh) and dense-16k, each held to the θ goldens; the 60k
+    graph on four gloo ranks sharing the card, held to world 1; the
+    512-rank dry-run; ``edge_butterflies_csr``'s kernel route."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import csr
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.launch.mesh import make_peel_mesh, make_peel_mesh_2d
+
+    rp = load_module("distributed_replay", os.path.join(
+        ROOT, "tests", "goldens", "distributed_replay.py"))
+    info: dict = {}
+    g1m = powerlaw_bipartite(**fullsize["tip-1m"]["graph"])
+    g60 = powerlaw_bipartite(**fullsize["wing-60k"]["graph"])
+    g16 = powerlaw_bipartite(**engines["dense-16k"]["graph"])
+    for name, g, sha in (("tip-1m", g1m, fullsize["tip-1m"]),
+                         ("wing-60k", g60, fullsize["wing-60k"]),
+                         ("dense-16k", g16, engines["dense-16k"])):
+        expect(name, "edges sha256", cli_sha(g), sha["edges_sha256"])
+    wing, tip = D.distributed_wing_decomposition, D.distributed_tip_decomposition
+    th = dict(tip1m=fullsize["tip-1m"]["theta_sha256"],
+              wing60=fullsize["wing-60k"]["theta_sha256"],
+              tip60=fullsize["tip-60k"]["theta_sha256"],
+              dense16=engines["dense-16k"]["dense"]["theta_sha256"])
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_peel_mesh(device="cuda")
+        mesh2 = make_peel_mesh_2d(device="cuda")
+        golden = rp.load_golden()
+        t0 = time.perf_counter()
+        cells = rp.replay(golden, mesh, "peel")
+        for key, want in golden["results"].items():
+            for f in ("theta", "part", "ranges", "support_init", "stats"):
+                expect(f"golden cell {key}", f, cells[key][f], want[f])
+        info["golden_cells_s"] = round(time.perf_counter() - t0, 3)
+        log(f"[smoke]   {len(cells)} golden cells on NCCL, world 1: θ, "
+            f"part, ranges, ⋈init and stats equal the JAX package's "
+            f"(8 devices) in {info['golden_cells_s']:.1f} s")
+
+        runs = {}
+        runs["tip-1m csr aligned"] = dist_run(
+            "tip-1m csr aligned", tip, g1m, mesh, "peel",
+            dict(P_parts=16, engine="csr", aligned=True), th["tip1m"], 1,
+            dev)
+        runs["wing-60k csr pair_aligned"] = dist_run(
+            "wing-60k csr pair_aligned", wing, g60, mesh, "peel",
+            dict(P_parts=16, engine="csr", pair_aligned=True), th["wing60"],
+            1, dev)
+        runs["wing-60k beindex bloom_aligned"] = dist_run(
+            "wing-60k beindex bloom_aligned", wing, g60, mesh, "peel",
+            dict(P_parts=16, engine="beindex", bloom_aligned=True),
+            th["wing60"], 1, dev)
+        runs["wing-60k csr pair_aligned (1, 1) mesh"] = r2 = dist_run(
+            "wing-60k csr pair_aligned (1, 1) mesh", wing, g60, mesh2,
+            ("grp", "loc"), dict(P_parts=16, engine="csr",
+                                 pair_aligned=True), th["wing60"], 2, dev)
+        r1 = runs["wing-60k csr pair_aligned"]
+        for key in ("part", "ranges", "support_init"):
+            expect("(1, 1) mesh", key,
+                   sha_int64(getattr(r2["res"], key)),
+                   sha_int64(getattr(r1["res"], key)))
+        expect("(1, 1) mesh", "stats", r2["stats"], r1["stats"])
+        runs["tip-60k csr aligned"] = dist_run(
+            "tip-60k csr aligned", tip, g60, mesh, "peel",
+            dict(P_parts=16, engine="csr", aligned=True), th["tip60"], 1,
+            dev)
+        runs["tip-60k csr aligned vmapped"] = dist_run(
+            "tip-60k csr aligned vmapped", tip, g60, mesh, "peel",
+            dict(P_parts=16, engine="csr", aligned=True,
+                 fd_driver="vmapped"), th["tip60"], 1, dev, vmapped=True)
+        runs["dense-16k"] = dist_run(
+            "dense-16k", tip, g16, mesh, "peel",
+            dict(P_parts=16, engine="dense"), th["dense16"], 0, dev,
+            dense=True)
+        # what one tip-1m CD round's reduction costs next to the round's
+        # device→host support copy
+        x = torch.zeros((g1m.n_u + 1,), dtype=torch.int32, device=dev)
+        grp = mesh.get_group("peel")
+        t0 = time.perf_counter()
+        for _ in range(200):
+            x.cpu()
+        info["support_copy_ms"] = round(
+            (time.perf_counter() - t0) / 200 * 1e3, 4)
+        info["all_reduce_ms"] = round(cuda_ms(
+            lambda: dist.all_reduce(x, group=grp), 200), 4)
+        log(f"[smoke]   NCCL world 1, one int32 all_reduce of tip-1m's "
+            f"{x.numel()} supports: {info['all_reduce_ms']} ms (device); "
+            f"its copy to the host {info['support_copy_ms']} ms (host "
+            "clock)")
+    finally:
+        dist.destroy_process_group()
+    info["world1"] = {k: dict(rho_cd=v["rho_cd"], seconds=v["seconds"])
+                      for k, v in runs.items()}
+
+    graph60 = fullsize["wing-60k"]["graph"]
+    info["four_ranks"] = {
+        label: dist_cli(label, flags, graph60, runs[
+            "wing-60k csr pair_aligned" if label == "wing"
+            else "tip-60k csr aligned"], tmp)
+        for label, flags in DIST_CLI}
+    info["dryrun_s"] = dist_dryrun()
+    info["edge_butterflies_csr"] = edge_butterflies_route(
+        csr.build_wedges(g60), dev, launches)
     return info
 
 

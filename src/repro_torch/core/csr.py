@@ -48,6 +48,7 @@ __all__ = [
     "pair_wedge_counts",
     "vertex_butterflies_csr",
     "edge_butterflies0",
+    "edge_butterflies_csr",
     "total_butterflies_csr",
     "tip_delta_csr",
     "tip_delta_slots",
@@ -582,6 +583,49 @@ def pair_wedge_counts(
     slots = valid & alive_w[idx] if w.n_wedges else valid
     W, _ = kops.pair_wedge_counts(slots)
     return torch.round(W[: max(w.n_pairs, 1)]).to(torch.int32)
+
+
+def _edge_butterflies_from_alive(alive_w, wp, we1, we2, n_pairs: int,
+                                 m: int) -> torch.Tensor:
+    W = _seg(alive_w.to(torch.int32), wp, n_pairs)
+    contrib = torch.where(alive_w, W[wp] - 1, 0)
+    return _seg(contrib, we1, m) + _seg(contrib, we2, m)
+
+
+def edge_butterflies_csr(
+    w: Wedges,
+    alive_e: Optional[torch.Tensor] = None,
+    use_pallas: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """⋈_e per edge over alive edges (int32, (m,)) — the csr batch
+    re-count, on ``alive_e``'s device if given, else on ``device``.
+
+    Each alive wedge w contributes (W_{p(w)} − 1) butterflies to both of
+    its edges.  With ``use_pallas`` the W_p reduction runs through the
+    ``wedge_count`` kernel (:func:`pair_wedge_counts`); the scatter back
+    to edges stays an int32 ``index_add_``."""
+    if alive_e is not None:
+        device = alive_e.device
+    else:
+        from .peel import resolve_device
+        device = resolve_device(device)
+    if w.n_wedges == 0:
+        return torch.zeros((max(w.m, 1),), dtype=torch.int32,
+                           device=device)[: w.m]
+    we1 = torch.from_numpy(w.wedge_e1).to(device)
+    we2 = torch.from_numpy(w.wedge_e2).to(device)
+    wp = torch.from_numpy(w.wedge_pair).to(device)
+    if alive_e is None:
+        alive_w = torch.ones((w.n_wedges,), dtype=torch.bool, device=device)
+    else:
+        alive_w = alive_e[we1] & alive_e[we2]
+    if not use_pallas:
+        return _edge_butterflies_from_alive(alive_w, wp, we1, we2,
+                                            w.n_pairs, w.m)
+    W = pair_wedge_counts(w, alive_e, use_pallas=True, device=device)
+    contrib = torch.where(alive_w, W[wp] - 1, 0)
+    return _seg(contrib, we1, w.m) + _seg(contrib, we2, w.m)
 
 
 def tip_delta_csr(

@@ -57,7 +57,9 @@ from .peelspec import (
     _fd_while_fused_rings,
     _fd_while_vmapped,
     _fd_while_vmapped_rings,
+    _host,
     _pad_zeros,
+    _t,
     decompose,
 )
 from .. import obs
@@ -145,14 +147,6 @@ def _host_recorder(part_i: int, nupd_now=None):
             last[0] = n
 
     return on_round, lambda: col.record_fd_host(part_i, rows, updates=upds)
-
-
-def _t(x: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy().astype(np.int64)
 
 
 def _host_rint(x: torch.Tensor) -> np.ndarray:

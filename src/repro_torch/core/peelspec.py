@@ -438,6 +438,16 @@ def _bucket_pad(n: int, floor: int = 128) -> int:
     return -(-n // step) * step
 
 
+def _t(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """A device tensor of integers as a host int64 array."""
+    return x.cpu().numpy().astype(np.int64)
+
+
 def _pad_zeros(x: np.ndarray, size: int) -> np.ndarray:
     if x.size >= size:
         return x

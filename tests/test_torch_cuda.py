@@ -700,3 +700,62 @@ def test_multitenant_service_on_the_card(card, tmp_path):
                                                         seed=s))
                       for s in (0, 1)]
     assert "sync_debug" in _check_no_host_sync(svc, pool, mixes)
+
+
+def _load_replay():
+    """``tests/goldens/distributed_replay.py`` by path (no JAX import)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "goldens", "distributed_replay.py")
+    spec = importlib.util.spec_from_file_location("distributed_replay", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_distributed_world_one_nccl_on_the_card(card, tmp_path):
+    """A world-1 NCCL process group on the card: every cell of
+    ``torch_distributed.json`` on the 1-D and the (1, 1) mesh equals the
+    JAX package's θ, part, ranges, ⋈init and stats, with the module's
+    collectives only (ρ_cd × 1 or 2 a CD round, none in FD)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_peel_mesh, make_peel_mesh_2d
+
+    rp = _load_replay()
+    golden = rp.load_golden()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        for mesh, axis in ((make_peel_mesh(device="cuda"), "peel"),
+                           (make_peel_mesh_2d(device="cuda"),
+                            ("grp", "loc"))):
+            cells = rp.replay(golden, mesh, axis)
+            for key, want in golden["results"].items():
+                got = cells[key]
+                for f in ("theta", "part", "ranges", "support_init",
+                          "stats"):
+                    assert got[f] == want[f], (key, f)
+                assert got["counts"]["fd"] == 0, key
+                assert got["calls"] == sum(got["counts"].values()), key
+    finally:
+        dist.destroy_process_group()
+
+
+def test_edge_butterflies_csr_kernel_route_on_the_card(card):
+    """``csr.edge_butterflies_csr(use_pallas=True)`` launches
+    ``wedge_count`` and equals the plain route and ``edge_butterflies0``."""
+    g = GRAPHS["pl800"]()
+    w = csr.build_wedges(g)
+    rng = np.random.default_rng(0)
+    for alive in (None, torch.from_numpy(rng.random(g.m) > 0.3).to(card)):
+        ops.reset_launch_counts()
+        got = csr.edge_butterflies_csr(w, alive, use_pallas=True,
+                                       device=card)
+        assert ops.launch_counts()["wedge_count"] == 1
+        want = csr.edge_butterflies_csr(w, alive, device=card)
+        assert got.device.type == "cuda" and torch.equal(got, want)
+        if alive is None:
+            assert np.array_equal(got.cpu().numpy(),
+                                  csr.edge_butterflies0(w))
