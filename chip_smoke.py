@@ -75,8 +75,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    against its 1xTF32, 3xTF32, FP32 and memory bounds), timed beside
    the plain version and SDPA; ChatGLM3-6B at full width and depth
    (random weights from a ``torch.Generator``), f32: ``prefill`` at b=4,
-   s=2048 (28 kernel launches a call), its logits and ``forward``'s at
-   513 positions held to teacher-forced ``serve_step``;
+   s=2048 (28 kernel launches a call), ``forward``'s logits at 129 of
+   the first 512 positions and a prefill of those 512 held to
+   teacher-forced ``serve_step``;
    ``ContinuousBatcher`` serving 8 requests through 4 slots, then again
    with an EOS; the same model in bf16 (12.5 GB): ``prefill`` at b=4,
    s=2048 timed twice (28 launches each), and at 256 positions its
@@ -139,6 +140,28 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    ``csr.edge_butterflies_csr(use_pallas=True)`` on the 60k graph's
    wedge list (all alive and a seeded mask): ``wedge_count`` launches
    and the result is ``torch.equal`` to the plain route.
+13. train — training on the dense family and the PBNG → LM bridge.
+   ``repro_torch.launch.train --arch tinyllama_1_1b --steps 8 --batch 4
+   --seq 2048`` (full width, f32, remat ``full``; the CLI's ``train`` in
+   this process): every loss finite, the last three steps' mean below
+   the first, ``flash_attention`` launched 2 × 22 times a step (the
+   forward and the recompute); seconds a step, tokens/s, peak allocated
+   memory; one more step under ``torch.profiler``, its device time by
+   class (GEMM, the attention kernel, the attention backward, the
+   optimizer, the rest), and one layer's attention forward and backward
+   timed alone.  At full width and depth 2, every gradient leaf through
+   the kernel route against torch autograd through the plain version
+   (relative L2 ≤ 1e-4).  The CLI's crash and resume in its own
+   processes (``--reduced --steps 30 --ckpt-every 10 --crash-at 15``:
+   exit 42, latest step 10, then ``resumed from step 10`` and step 30).
+   The 60k graph through ``interaction_curriculum`` (θ held to the
+   golden, the levels to its quantile buckets) and
+   ``curriculum_sequences`` (each interaction in one sequence), then one
+   epoch of a reduced TinyLlama over the node vocabulary (the loss must
+   fall); ``moe_affinity`` of a seeded router with DeepSeek-V2's shape
+   (160 experts, top-6, 65 536 tokens) on the card equal to the CPU's,
+   and ``tests/test_system.py``'s assignment equal to the port's BUP
+   oracle (``core/ref.py``).
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -1379,7 +1402,8 @@ _ATTN_SHAPES = (
      None),
 )
 LM = dict(
-    arch="chatglm3_6b", batch=4, seq=2048, stride=4, bf16_check_seq=256,
+    arch="chatglm3_6b", batch=4, seq=2048, stride=4, f32_check_seq=512,
+    bf16_check_seq=256,
     kernel_cases=tuple((f"{label} {tag}", qs, ks, causal, offset, dt)
                        for label, qs, ks, causal, offset in _ATTN_SHAPES
                        for tag, dt in (("bf16", "bfloat16"),
@@ -1840,15 +1864,20 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
                     for k in ops.KERNELS})
             launches["flash_attention"] = (launches.get("flash_attention", 0)
                                            + counts["flash_attention"])
-        pos = sorted(set(range(0, s, lm["stride"])) | {s - 1})
+        # the decode check runs over the first f32_check_seq positions
+        # (a decode step costs ~38 ms at this width)
+        n = min(lm["f32_check_seq"], s)
+        pos = sorted(set(range(0, n, lm["stride"])) | {n - 1})
         fwd = model(tokens)[:, pos]
+        if n < s:
+            last = model.prefill(tokens[:, :n].contiguous())
     t0 = time.perf_counter()
-    dec = teacher_forced(model, tokens, pos, dev)
+    dec = teacher_forced(model, tokens[:, :n].contiguous(), pos, dev)
     sync(dev)
     decode_s = time.perf_counter() - t0
     info.update(
         prefill_s=prefill_s, prefill_tok_s=[b * s / t for t in prefill_s],
-        decode_s=decode_s, decode_tok_s=b * s / decode_s,
+        decode_s=decode_s, decode_tok_s=b * n / decode_s,
         positions_compared=len(pos),
         prefill_vs_decode=close_logits("prefill vs teacher-forced decode",
                                        last, dec[:, -1]),
@@ -1858,7 +1887,7 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     log(f"[smoke]   {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads): prefill b={b} s={s} in "
         f"{prefill_s} s ({info['prefill_tok_s']} tok/s), {cfg.n_layers} "
-        f"flash_attention launches each; {s} teacher-forced decode steps in "
+        f"flash_attention launches each; {n} teacher-forced decode steps in "
         f"{decode_s:.2f} s ({info['decode_tok_s']:.1f} tok/s); prefill and "
         f"forward ({len(pos)} positions) vs decode max abs err "
         f"{info['prefill_vs_decode']:.2e} / {info['forward_vs_decode']:.2e} "
@@ -2035,6 +2064,12 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
     with Phase("12-distributed"):
         dist_info = phase_distributed(fullsize, engines, dev, tmp, launches)
 
+    with Phase("13-train"):
+        train_info = phase_train(fullsize, dev, tmp, launches, smi=smi)
+        rows["flash_attention"]["training_launches"] = dict(
+            cli=train_info["cli"]["flash_attention_launches"],
+            curriculum=train_info["curriculum"]["flash_attention_launches"])
+
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -2053,14 +2088,15 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                                        "bound_by_product", "bound_3xtf32_ms",
                                        "random_f32_rel_err", "library",
                                        "ms_packed", "pack_ms", "int_mm_ms",
-                                       "tiled_e2e_ms")
+                                       "tiled_e2e_ms", "training_launches")
                if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
                         real_graph_seconds=real_seconds,
                         engine_seconds=engine_seconds, lm=lm_info,
                         traced_tip_1m=trace_info, stream=stream_info,
-                        multitenant=mt_info, distributed=dist_info)))
+                        multitenant=mt_info, distributed=dist_info,
+                        train=train_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -3050,6 +3086,514 @@ def phase_distributed(fullsize, engines, dev, tmp, launches) -> dict:
     info["dryrun_s"] = dist_dryrun()
     info["edge_butterflies_csr"] = edge_butterflies_route(
         csr.build_wedges(g60), dev, launches)
+    return info
+
+
+
+# ---------------------------------------------------------------------
+# phase 13: training (dense family) and the PBNG → LM bridge
+# ---------------------------------------------------------------------
+# the CLI's full-width run (TinyLlama-1.1B as published, f32, default
+# remat), the depth of the gradient check, the crash/resume run, the
+# curriculum on the 60k graph (examples/graph_curriculum.py's recipe) and
+# a router of DeepSeek-V2's shape (160 routed experts, top-6) over b 32 ×
+# s 2 048 tokens
+TRAIN = dict(
+    cli=["--arch", "tinyllama_1_1b", "--steps", "8", "--batch", "4",
+         "--seq", "2048", "--log-every", "1"],
+    grad=dict(arch="tinyllama_1_1b", overrides=dict(n_layers=2), batch=4,
+              seq=2048),
+    resume=["--arch", "tinyllama_1_1b", "--reduced", "--steps", "30",
+            "--batch", "4", "--seq", "32", "--ckpt-every", "10",
+            "--log-every", "5"],
+    crash_at=15, resumed_at=10,
+    curriculum=dict(graph="wing-60k", n_levels=4, P=8, max_len=32, batch=16,
+                    n_layers=2, lr=1e-2),
+    moe=dict(experts=160, top_k=6, tokens=32 * 2048, width=64, P=8, seed=0),
+)
+# relative L2 of a gradient leaf through the kernel route against torch
+# autograd through the plain version: the f32 forward's gate is 1e-4 a
+# row (ATTN_ROW_RTOL), the backward the same torch ops on both routes
+TRAIN_GRAD_RTOL = 1e-4
+# a kernel of a profiled step: its class by name (cuBLAS / CUTLASS GEMMs;
+# the port's flash_attention kernels and their split_kv pre-pass)
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "gemv")
+ATTN_NAMES = ("flash_attention_kernel", "flash_tc_kernel",
+              "flash_tf32_kernel", "split_kv_kernel")
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in ATTN_NAMES):
+        return "attention_kernel"
+    if any(k in low for k in GEMM_NAMES):
+        return "gemm"
+    return "rest"
+
+
+def _range_kernels(events, name):
+    """(kernel name, µs) of every kernel launched from inside the CPU
+    ranges called ``name`` (``record_function`` labels), children
+    included."""
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in e.kernels)
+        for ch in e.cpu_children:
+            walk(ch)
+    for e in events:
+        if e.name == name and e.device_type == e.device_type.CPU:
+            walk(e)
+    return out
+
+
+def step_device_split(events, wall_ms) -> dict:
+    """One profiled train step's device ms by class: the attention
+    kernel (the port's flash_attention and split_kv kernels, by name), the
+    attention backward (kernels under ``flash_attention.backward``), the
+    optimizer (under ``adamw_update``), the GEMMs outside those two, and
+    the rest; with the step's host-clock ms and the device's busy share.
+    None where the profiler saw no device time (not measured)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # device events less the device-side copies of the record_function
+    # labels (they span the kernels they hold)
+    kernels = [(e.name, e.self_device_time_total) for e in events
+               if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(us for _, us in kernels)
+    if total == 0:
+        return dict(device_ms=None)
+    bwd = _range_kernels(events, "flash_attention.backward")
+    opt = _range_kernels(events, "adamw_update")
+    inside = {}
+    for name, us in bwd + opt:
+        inside[kernel_class(name)] = inside.get(kernel_class(name), 0) + us
+    by_name = {}
+    for name, us in kernels:
+        c = kernel_class(name)
+        by_name[c] = by_name.get(c, 0) + us
+    split = dict(
+        attention_kernel=by_name.get("attention_kernel", 0)
+        - inside.get("attention_kernel", 0),
+        attention_backward=sum(us for _, us in bwd),
+        optimizer=sum(us for _, us in opt),
+        gemm=by_name.get("gemm", 0) - inside.get("gemm", 0))
+    split["rest"] = total - sum(split.values())
+    top = {}
+    for name, us in kernels:
+        top[name[:70]] = top.get(name[:70], 0) + us
+    return dict(device_ms=total / 1e3, wall_ms=wall_ms,
+                busy_share=total / 1e3 / wall_ms,
+                split_ms={k: v / 1e3 for k, v in split.items()},
+                top_kernels_ms={k: v / 1e3 for k, v in sorted(
+                    top.items(), key=lambda kv: -kv[1])[:8]})
+
+
+def profile_train_step(cfg, dev, batch_size, seq) -> dict:
+    """One full-width train step under ``torch.profiler`` (CPU and CUDA
+    activity), after a warm step, on fresh weights; its device split."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    if torch.device(dev).type != "cuda":  # a CPU rehearsal has no kernels
+        return dict(device_ms=None)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(lr=3e-3)))
+    data = synthetic_batches(DataConfig(batch=batch_size, seq=seq,
+                                        vocab=cfg.vocab, seed=1))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+               for _ in range(2)]
+    params, opt, _ = step(params, opt, batches[0])
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[1])
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = step_device_split(prof.events(), wall_ms)
+    if out["device_ms"] is None:
+        log("[smoke]   train step profile: the profiler saw no device time "
+            "(not measured)")
+    return out
+
+
+def attention_backward_ms(cfg, batch, seq, dev, reps=5) -> dict:
+    """CUDA-event ms of one layer's attention at the training shape:
+    the kernel forward and ``attention_backward`` (its torch ops), on
+    seeded inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if torch.device(dev).type != "cuda":
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    hd = cfg.resolved_head_dim
+    q = torch.randn((batch, cfg.n_heads, seq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((batch, cfg.n_kv_heads, seq, hd), generator=gen,
+                        device=dev) for _ in range(2))
+    scale = hd ** -0.5
+    out = fa.flash_attention(q, k, v, True, scale, 0)
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    return dict(
+        forward_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, True, scale,
+                                                      0), reps),
+        backward_ms=cuda_ms(lambda: fa.attention_backward(
+            q, k, v, out, dout, True, scale, 0), reps))
+
+
+def train_cli(argv, dev, launches) -> dict:
+    """``repro_torch.launch.train``'s run in this process (the CLI's
+    ``train``; the card's memory is its own): launch counts zeroed just
+    before and read just after, the peak allocated memory, the losses
+    and step seconds.  Gates: every loss finite, the last three steps'
+    mean below the first step's, two ``flash_attention`` launches a layer
+    and step (the forward and the full-remat recompute); and that it
+    learned: the loss on a held-out batch (the one the step after the
+    last would see) lower with the run's last weights than with its
+    first (drawn again from ``--seed``), and every leaf moved by a
+    finite, non-zero amount."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.train.tree import tree_leaves
+
+    args = T.parse_args([*argv, "--device", dev])
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = T.train(args)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() if torch.device(dev).type ==
+            "cuda" else None)
+    cfg, last = rec["cfg"], rec.pop("params")
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train CLI: a loss is not finite: {losses}")
+    want = (2 * cfg.n_layers * len(losses) if torch.device(dev).type ==
+            "cuda" else 0)
+    expect("train CLI", "flash_attention launches",
+           counts["flash_attention"], want)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    first = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    held = {k: torch.from_numpy(v).to(dev) for k, v in next(synthetic_batches(
+        DataConfig(batch=args.batch, seq=args.seq, vocab=cfg.vocab,
+                   seed=args.seed), start_step=args.steps)).items()}
+    with torch.no_grad():
+        held_before = float(train_loss(first, held, cfg))
+        held_after = float(train_loss(last, held, cfg))
+        moved = [float((b - a).norm()) for a, b in zip(tree_leaves(first),
+                                                       tree_leaves(last))]
+    del first, last
+    if not held_after < held_before:
+        raise AssertionError(f"train CLI: the held-out batch's loss did not "
+                             f"fall ({held_before} -> {held_after})")
+    if not all(math.isfinite(x) and x > 0 for x in moved):
+        raise AssertionError(f"train CLI: a leaf did not move by a finite, "
+                             f"non-zero amount: {moved}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train CLI: the loss did not fall: {losses}")
+    secs = rec["step_seconds"]
+    tokens = args.batch * args.seq
+    steady = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
+    return dict(seconds=round(dt, 3), losses=losses,
+                step_seconds=[round(x, 4) for x in secs],
+                steady_step_s=steady, tokens_per_s=tokens / steady,
+                max_memory_allocated=peak,
+                flash_attention_launches=counts["flash_attention"],
+                held_out_loss=[held_before, held_after],
+                min_leaf_move=min(moved))
+
+
+def kernel_route_grads(label, cfg, params, batch, dev) -> dict:
+    """Every leaf's gradient of ``train_loss`` on ``batch`` through the
+    kernel route (``FlashAttention``, the kernel forward) against torch
+    autograd through the plain version (``ref.flash_attention_ref``, in
+    place of the kernel for the second run), both on ``dev``; relative
+    L2 per leaf within ``TRAIN_GRAD_RTOL``.  Its launches are counted
+    here only, not on the main path's count."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers, train_loss
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    def grads():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = train_loss(leaves, batch, cfg)
+        return loss.item(), torch.autograd.grad(loss, tree_leaves(leaves))
+
+    ops.reset_launch_counts()
+    loss_k, g_k = grads()
+    n = ops.launch_counts()["flash_attention"]
+    plain = lambda q, k, v, causal=True, offset=None: ref.flash_attention_ref(
+        q, k, v, causal=causal, offset=offset)
+    with mock.patch.object(layers.ops, "flash_attention", plain):
+        loss_p, g_p = grads()
+    worst = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p))
+    if torch.device(dev).type == "cuda":
+        expect(label, "flash_attention launches", n, 2 * cfg.n_layers)
+    if not worst <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"{label}: a leaf's relative L2 {worst} > "
+                             f"{TRAIN_GRAD_RTOL} against plain autograd")
+    return dict(worst_rel_l2=worst, loss_kernel=loss_k, loss_plain=loss_p,
+                leaves=len(g_k), launches=n,
+                tokens_shape=list(batch["tokens"].shape))
+
+
+def train_grads_check(spec, dev) -> dict:
+    """``kernel_route_grads`` at full width and the depth of
+    ``spec["overrides"]``, on one seeded batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), max_seq=spec["seq"],
+                              **spec["overrides"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    data = synthetic_batches(DataConfig(batch=spec["batch"], seq=spec["seq"],
+                                        vocab=cfg.vocab, seed=3))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+    return kernel_route_grads("train grads", cfg, params, batch, dev)
+
+
+def train_resume(argv, crash_at, resumed_at, dev, tmp) -> dict:
+    """``python -m repro_torch.launch.train`` in its own processes, as
+    ``tests/test_train.py`` runs the JAX CLI: with ``--crash-at`` it exits
+    42 with the checkpoint of ``resumed_at`` the latest; rerun, it prints
+    ``resumed from step`` and ends at the last step."""
+    from repro_torch.train import latest_step
+
+    ckpt = os.path.join(tmp, "train-ckpt")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    args = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+            "--ckpt-dir", ckpt, "--device", dev]
+    steps = int(argv[argv.index("--steps") + 1])
+    t0 = time.perf_counter()
+    out1 = subprocess.run(args + ["--crash-at", str(crash_at)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    t1 = time.perf_counter()
+    expect("train crash", "exit code", out1.returncode, 42)
+    expect("train crash", "latest step", latest_step(ckpt), resumed_at)
+    out2 = subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    t2 = time.perf_counter()
+    if out2.returncode != 0:
+        raise AssertionError(f"train resume failed (rc {out2.returncode}): "
+                             f"{out2.stdout[-2000:]}{out2.stderr[-3000:]}")
+    expect("train resume", "resumed line",
+           f"resumed from step {resumed_at}" in out2.stdout, True)
+    expect("train resume", "latest step", latest_step(ckpt), steps)
+    done = [ln for ln in out2.stdout.splitlines() if "done: loss" in ln]
+    log(f"[smoke]   crash at {crash_at}: exit 42, latest {resumed_at}; "
+        f"resumed: {done[-1] if done else out2.stdout[-200:]}")
+    return dict(crash_s=round(t1 - t0, 3), resume_s=round(t2 - t1, 3))
+
+
+def train_curriculum(fullsize, spec, dev, launches) -> dict:
+    """The PBNG → LM bridge on the card (``examples/graph_curriculum.py``
+    on the 60k graph): θ of the wing peel held to the golden, the levels
+    of ``interaction_curriculum`` to θ's quantile buckets, every
+    interaction in exactly one of ``curriculum_sequences``' sequences,
+    the kernel route's gradients on the epoch's first batch against plain
+    autograd (``kernel_route_grads``), then one epoch of a reduced
+    TinyLlama over the node vocabulary; the loss must fall (the last ten
+    steps' mean below the first ten's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.analysis import (curriculum_levels,
+                                           interaction_curriculum)
+    from repro_torch.core.graph import powerlaw_bipartite
+    from repro_torch.core.peel import wing_decomposition
+    from repro_torch.data import curriculum_sequences, sequence_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, reduced
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    want = fullsize[spec["graph"]]
+    g = powerlaw_bipartite(**want["graph"])
+    t0 = time.perf_counter()
+    theta = wing_decomposition(g, P=spec["P"], engine="beindex",
+                               device=dev).theta
+    expect("curriculum", "theta sha256", sha_int64(theta),
+           want["theta_sha256"])
+    t1 = time.perf_counter()
+    level, bounds = interaction_curriculum(g, spec["n_levels"], spec["P"],
+                                           device=dev)
+    want_level, want_bounds = curriculum_levels(theta, spec["n_levels"])
+    expect("curriculum", "levels", sha_int64(level), sha_int64(want_level))
+    expect("curriculum", "bounds", bounds.tolist(), want_bounds.tolist())
+    t2 = time.perf_counter()
+    seqs = curriculum_sequences(g, spec["n_levels"], spec["P"],
+                                spec["max_len"], device=dev)
+    t3 = time.perf_counter()
+    pairs = np.concatenate([np.stack([np.full(s.size - 1, s[0]),
+                                      s[1:] - g.n_u], 1) for s in seqs])
+    expect("curriculum", "interactions",
+           sha_int64(pairs[np.lexsort(pairs.T[::-1])]),
+           sha_int64(g.edges[np.lexsort(g.edges.T[::-1])]))
+    cfg = reduced(get_config("tinyllama_1_1b"), vocab=g.n_u + g.n_v,
+                  n_layers=spec["n_layers"], max_seq=spec["max_len"])
+    batches = list(sequence_batches(seqs, spec["batch"], spec["max_len"] - 1))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    # the epoch's attention shape (S = max_len - 1, not a whole tile):
+    # the kernel route's gradients against plain autograd on its first
+    # batch, before the epoch's launches are counted
+    grads = kernel_route_grads(
+        "curriculum grads", cfg, params,
+        {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}, dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+        lr=spec["lr"], total_steps=len(batches))))
+    ops.reset_launch_counts()
+    losses = []
+    t4 = time.perf_counter()
+    for batch in batches:
+        params, opt, m = step(params, opt, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    t5 = time.perf_counter()
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        raise AssertionError(f"curriculum: the loss did not fall "
+                             f"({first} -> {last})")
+    info = dict(sequences=len(seqs), steps=len(batches),
+                levels=np.bincount(level, minlength=spec["n_levels"]).tolist(),
+                bounds=bounds.tolist(), loss_first10=first, loss_last10=last,
+                peel_s=round(t1 - t0, 3), curriculum_s=round(t2 - t1, 3),
+                sequences_s=round(t3 - t2, 3), epoch_s=round(t5 - t4, 3),
+                step_ms=round((t5 - t4) / len(batches) * 1e3, 3),
+                flash_attention_launches=counts["flash_attention"],
+                grads=grads)
+    log(f"[smoke]   curriculum on the 60k graph ({dev}): θ equals the "
+        f"golden; levels {info['levels']}, bounds {info['bounds']}; "
+        f"{len(seqs)} sequences hold each of the {g.m} interactions once; "
+        f"{len(batches)} steps of a reduced TinyLlama (vocab {cfg.vocab}), "
+        f"loss {first:.4f} -> {last:.4f}; {info}")
+    return info
+
+
+def moe_router(spec):
+    """A seeded top-k router: (tokens, k) expert ids of the largest
+    logits of token features · a gate, plus a per-expert skew."""
+    import numpy as np
+
+    rng = np.random.default_rng(spec["seed"])
+    h = rng.standard_normal((spec["tokens"], spec["width"]), np.float32)
+    w = rng.standard_normal((spec["width"], spec["experts"]), np.float32)
+    logits = h @ w + np.linspace(0.0, 2.0, spec["experts"], dtype=np.float32)
+    return np.argpartition(-logits, spec["top_k"], axis=1)[:, :spec["top_k"]]
+
+
+def train_moe(spec, dev) -> dict:
+    """``moe_affinity`` of a router with DeepSeek-V2's shape on the card
+    equals the same call on the CPU; ``tests/test_system.py``'s small
+    assignment equals the port's BUP oracle (``core/ref.py``)."""
+    import numpy as np
+
+    from repro_torch.core import ref
+    from repro_torch.core.analysis import moe_affinity, routing_graph
+
+    assign = moe_router(spec)
+    t0 = time.perf_counter()
+    got = moe_affinity(assign, spec["experts"], P=spec["P"], device=dev)
+    t1 = time.perf_counter()
+    want = moe_affinity(assign, spec["experts"], P=spec["P"], device="cpu")
+    t2 = time.perf_counter()
+    expect("moe_affinity", f"θ of {spec['experts']} experts",
+           np.asarray(got).tolist(), np.asarray(want).tolist())
+    rng = np.random.default_rng(0)
+    small = np.concatenate([rng.integers(0, 4, (50, 2)),
+                            rng.integers(4, 8, (50, 2))])
+    expect("moe_affinity", "test_system's assignment",
+           np.asarray(moe_affinity(small, 8, P=4, device=dev)).tolist(),
+           ref.bup_tip_ref(routing_graph(small, 8), side="v").tolist())
+    info = dict(tokens=int(assign.shape[0]), experts=spec["experts"],
+                top_k=spec["top_k"], theta_max=int(np.max(got)),
+                distinct_theta=int(np.unique(got).size),
+                device_s=round(t1 - t0, 3), cpu_s=round(t2 - t1, 3))
+    log(f"[smoke]   moe_affinity, {info['tokens']} tokens × "
+        f"{spec['experts']} experts top-{spec['top_k']}: {dev} equals the "
+        f"CPU; the small assignment equals bup_tip_ref; {info}")
+    return info
+
+
+def phase_train(fullsize, dev, tmp, launches, tr=TRAIN, smi="") -> dict:
+    """Phase 13: the training CLI at full width (its device split under
+    the profiler, attention's forward and backward timed alone), the
+    kernel route's gradients against plain autograd, crash and resume,
+    the curriculum on the 60k graph and the MoE affinity."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    info = dict(cli=train_cli(tr["cli"], dev, launches))
+    c = info["cli"]
+    log(f"[smoke]   launch.train {' '.join(tr['cli'])} ({dev}): losses "
+        f"{[round(x, 4) for x in c['losses']]}; step seconds "
+        f"{c['step_seconds']}; {c['tokens_per_s']:.1f} tokens/s at the "
+        f"median step {c['steady_step_s']:.4f} s; max_memory_allocated "
+        f"{c['max_memory_allocated']}; flash_attention launches "
+        f"{c['flash_attention_launches']}; held-out batch's loss "
+        f"{c['held_out_loss'][0]:.4f} -> {c['held_out_loss'][1]:.4f}, the "
+        f"least leaf move {c['min_leaf_move']:.3e} ({smi})")
+    argv = tr["cli"]
+    cfg = get_config(argv[argv.index("--arch") + 1])
+    if "--reduced" in argv:
+        from repro_torch.models import reduced
+
+        cfg = reduced(cfg)
+    b, s = (int(argv[argv.index(f) + 1]) for f in ("--batch", "--seq"))
+    cfg = dataclasses.replace(cfg, max_seq=s)
+    info["profile"] = profile_train_step(cfg, dev, b, s)
+    info["attention_alone"] = attention_backward_ms(cfg, b, s, dev)
+    log(f"[smoke]   one train step's device split: {info['profile']}; one "
+        f"layer's attention alone: {info['attention_alone']} ({smi})")
+    info["grads"] = train_grads_check(tr["grad"], dev)
+    log(f"[smoke]   kernel-route gradients at full width, depth "
+        f"{tr['grad']['overrides']['n_layers']}: {info['grads']} (limit "
+        f"{TRAIN_GRAD_RTOL})")
+    info["resume"] = train_resume(tr["resume"], tr["crash_at"],
+                                  tr["resumed_at"], dev, tmp)
+    info["curriculum"] = train_curriculum(fullsize, tr["curriculum"], dev,
+                                          launches)
+    info["moe"] = train_moe(tr["moe"], dev)
     return info
 
 

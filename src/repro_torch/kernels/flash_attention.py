@@ -15,8 +15,14 @@ f32 inputs with D 64, 128 or 256 take the 3×TF32 tensor-core kernel
 (each operand split into two TF32 planes, three products, f32 to within
 rounding), after ``split_kv``, its pre-pass, has written k's and v's
 planes; D 32 (the reduced presets' head dim) takes the CUDA-core kernel
-in either dtype.  The kernels have no backward: a CUDA input that
-requires grad is refused.
+in either dtype.
+
+``flash_attention`` is a ``torch.autograd.Function`` (``FlashAttention``)
+on both devices: its forward is the kernel (the plain version on a CPU
+tensor), its backward ``attention_backward``, the online-softmax
+backward in torch ops, query block by query block, at full f32 (the
+JAX package has no backward kernel either: it trains through its jnp
+blockwise attention, which XLA differentiates).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["HEAD_DIMS", "flash_attention", "route", "split_kv"]
+__all__ = ["HEAD_DIMS", "FlashAttention", "attention_backward",
+           "flash_attention", "route", "split_kv"]
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -108,16 +115,100 @@ def _rows(name, t, dtype, device):
 
 def flash_attention(q, k, v, causal: bool, scale: float, offset: int):
     """See the module docstring; ``scale`` multiplies the scores."""
+    return FlashAttention.apply(q, k, v, causal, scale, offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the kernel (or, on a CPU tensor, its
+    plain version) and whose backward is :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, offset):
+        out = _forward(q, k, v, causal, scale, offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, scale, offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        # a label for torch.profiler: the device time of a training step's
+        # attention backward is this range's
+        with torch.profiler.record_function("flash_attention.backward"):
+            grads = attention_backward(q, k, v, out, dout, *ctx.args)
+        return (*grads, None, None, None)
+
+
+# query rows a backward block takes: its scores are [B, KVH, H/KVH · 512,
+# keys] f32 (0.54 GB at TinyLlama's b 4, 32/4 heads, S 2 048), and a
+# few such tensors live at once
+BWD_BLOCK = 512
+
+
+def attention_backward(q, k, v, out, dout, causal: bool, scale: float,
+                       offset: int):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) with output
+    ``out`` and upstream gradient ``dout``, in torch ops at full f32, a
+    block of ``BWD_BLOCK`` query rows at a time: the block's row
+    log-sum-exp is recomputed from q and k, P = exp(s − lse),
+    dV += Pᵀ·dO, dS = P ∘ (dO·Vᵀ − rowsum(dO ∘ O)), dQ = scale · dS·K
+    and dK += scale · dSᵀ·Q.  A block's rows are its H/KVH query heads
+    over the block's positions, so dK and dV sum over each GQA group.
+    With ``causal``, key j is visible to query i iff j <= i + ``offset``;
+    a block reads only the keys its last row sees, and a row that sees
+    no key has P = 0 (its output was 0).  Gradients in the inputs'
+    dtypes."""
+    B, H, sq, D = q.shape
+    KVH, sk = k.shape[1], k.shape[2]
+    g = H // KVH
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, KVH, g, sq, D)
+    of = out.to(f32).reshape(B, KVH, g, sq, D)
+    dof = dout.to(f32).reshape(B, KVH, g, sq, D)
+    kf, vf = k.to(f32), v.to(f32)
+    dq = torch.zeros((B, KVH, g, sq, D), dtype=f32, device=q.device)
+    dk = torch.zeros((B, KVH, sk, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, KVH, sk, D), dtype=f32, device=q.device)
+    for r0 in range(0, sq, BWD_BLOCK):
+        r1 = min(sq, r0 + BWD_BLOCK)
+        n = min(sk, r1 + offset) if causal else sk
+        if n <= 0:
+            continue
+        rows = (B, KVH, g * (r1 - r0), D)
+        qb = qf[:, :, :, r0:r1].reshape(rows)
+        dob = dof[:, :, :, r0:r1].reshape(rows)
+        ob = of[:, :, :, r0:r1].reshape(rows)
+        kb, vb = kf[:, :, :n], vf[:, :, :n]
+        s = ref.matmul_f32(qb, kb.transpose(-1, -2)) * scale
+        if causal:
+            seen = (torch.arange(n, device=q.device)[None, :]
+                    <= torch.arange(r0, r1, device=q.device)[:, None] + offset)
+            s = s.view(B, KVH, g, r1 - r0, n).masked_fill_(
+                ~seen, float("-inf")).view(s.shape)
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0))
+        del s
+        dv[:, :, :n] += ref.matmul_f32(p.transpose(-1, -2), dob)
+        ds = ref.matmul_f32(dob, vb.transpose(-1, -2))
+        ds -= (dob * ob).sum(dim=-1, keepdim=True)
+        ds *= p
+        del p
+        dq[:, :, :, r0:r1] = (ref.matmul_f32(ds, kb) * scale).view(
+            B, KVH, g, r1 - r0, D)
+        dk[:, :, :n] += ref.matmul_f32(ds.transpose(-1, -2), qb) * scale
+    return (dq.reshape(B, H, sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _forward(q, k, v, causal: bool, scale: float, offset: int):
+    """The forward: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                        offset=offset)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: takes CPU tensors (plain version) "
                          f"or CUDA tensors (the kernel), got {q.device}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel has no backward (neither has "
-            "the JAX package's); training waits for ROADMAP queue 1 item 15b")
     B, H, sq, D = q.shape
     KVH, sk = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:

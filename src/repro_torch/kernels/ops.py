@@ -202,7 +202,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of KVH: GQA/MQA without repeating them) and ``offset`` may be given,
     as ``models.layers.blockwise_attention`` does (its ``q_offset``: key
     j visible to query i iff j <= i + offset).  Scores are scaled by
-    D^-1/2.  A row that sees no key gives 0."""
+    D^-1/2.  A row that sees no key gives 0.  Differentiable: the call
+    is ``flash_attention.FlashAttention`` (the kernel forward, a backward
+    in torch ops)."""
     sq, D = q.shape[2], q.shape[3]
     sk = k.shape[2]
     return _flash_attention(q, k, v, causal=causal, scale=D ** -0.5,

@@ -154,9 +154,40 @@ def _full_f32():
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in full float32 whatever the process-wide precision
-    setting (the JAX package's ``Precision.HIGHEST``)."""
+    setting (the JAX package's ``Precision.HIGHEST``).  Where autograd
+    records it (an operand of two or more dims requires grad), the
+    backward's two products are full float32 too (``_MatmulF32``)."""
+    if (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+            and a.dim() >= 2 and b.dim() >= 2):
+        return _MatmulF32.apply(a, b)
     with _full_f32():
         return torch.matmul(a, b)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.matmul`` whose forward and backward products are full f32:
+    da = g·bᵀ, db = aᵀ·g (a weight [d, n] under activations [..., d]
+    takes one [d, rows]·[rows, n] product).  The model's products
+    broadcast nothing else: batched operands share their batch dims
+    (autograd refuses a gradient of another shape)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _full_f32():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = matmul_f32(g, b.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            db = (matmul_f32(a.reshape(-1, a.shape[-1]).T,
+                             g.reshape(-1, g.shape[-1])) if b.dim() == 2
+                  else matmul_f32(a.transpose(-1, -2), g))
+        return da, db
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,

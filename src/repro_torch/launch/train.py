@@ -1,0 +1,135 @@
+"""End-to-end training CLI of the PyTorch port (dense family).
+
+The same flags, output lines and exit codes as the JAX package's
+``python -m repro.launch.train``, plus ``--device`` (default ``cuda``;
+``cpu`` runs the kernels' plain versions)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \
+        --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
+        --resume auto
+
+The weights are random, drawn from a ``torch.Generator`` on the device
+seeded with ``--seed`` (not the JAX package's numbers); the batches are
+``data.synthetic_batches`` seeded per step, so a resumed run sees the
+batches the crashed one would have.  Fault tolerance: checkpoints every
+``--ckpt-every`` steps (atomic manifests, file-compatible with the JAX
+package's), auto-resume from the latest complete checkpoint, straggler
+detection via step-time z-score, crash injection (``--crash-at`` exits
+42) for the restart test.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def train(args) -> dict:
+    """The run: prints the JAX CLI's lines and returns {losses,
+    step_seconds (host clock, each ending in the loss's copy to the
+    host), start, stragglers, cfg, params (the last step's)}."""
+    from ..configs import get_config
+    from ..core.peel import resolve_device
+    from ..data import DataConfig, synthetic_batches
+    from ..models import init_params, reduced
+    from ..train import (AdamWConfig, StragglerDetector, TrainConfig,
+                         adamw_init, latest_step, make_train_step,
+                         restore_checkpoint, save_checkpoint)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.seq:
+        cfg = dataclasses.replace(cfg, max_seq=args.seq)
+    dev = resolve_device(args.device)
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = init_params(cfg, gen, dev, torch.float32)
+    opt = adamw_init(params)
+    tcfg = TrainConfig(
+        microbatches=args.microbatches,
+        opt=AdamWConfig(lr=args.lr, total_steps=args.steps),
+    )
+    step_fn = make_train_step(cfg, tcfg)
+
+    start = 0
+    if args.resume == "auto" and args.ckpt_dir:
+        s = latest_step(args.ckpt_dir)
+        if s is not None:
+            params, opt, _ = restore_checkpoint(args.ckpt_dir, s, params, opt)
+            start = s
+            print(f"[train] resumed from step {s}", flush=True)
+
+    dcfg = DataConfig(batch=args.batch, seq=args.seq or cfg.max_seq,
+                      vocab=cfg.vocab, seed=args.seed)
+    data = synthetic_batches(dcfg, start_step=start)
+
+    det = StragglerDetector()
+    losses, seconds = [], []
+    for step in range(start, args.steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        t0 = time.perf_counter()
+        det.start()
+        params, opt, metrics = step_fn(params, opt, batch)
+        loss = float(metrics["loss"])
+        straggler = det.stop()
+        seconds.append(time.perf_counter() - t0)
+        if straggler:
+            print(f"[train] straggler step {step} detected", flush=True)
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"[train] step {step} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, step + 1, params, opt,
+                            extra=dict(arch=cfg.name))
+        if args.crash_at is not None and step + 1 == args.crash_at:
+            print("[train] injected crash", flush=True)
+            os._exit(42)
+
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, args.steps, params, opt,
+                        extra=dict(arch=cfg.name))
+    first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
+    last = np.mean(losses[-5:])
+    print(f"[train] done: loss {first:.4f} -> {last:.4f} "
+          f"({len(losses)} steps, stragglers={det.flagged})", flush=True)
+    return dict(losses=losses, step_seconds=seconds, start=start,
+                stragglers=det.flagged, cfg=cfg, params=params)
+
+
+def run(args) -> int:
+    train(args)
+    return 0
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default="auto")
+    ap.add_argument("--crash-at", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    sys.exit(run(parse_args(argv)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """Model zoo, the dense family: the JAX package's ``repro.models`` API
-on PyTorch (training, sharding and the dry-run's specs are not ported)."""
+on PyTorch, training loss included (sharding and the dry-run's specs
+are not ported)."""
 from .config import ModelConfig, reduced
 from .model import (
     SHAPE_SETS,
@@ -12,6 +13,7 @@ from .model import (
     prefill,
     serve_step,
     shape_applicable,
+    train_loss,
 )
 
 __all__ = [
@@ -27,4 +29,5 @@ __all__ = [
     "prefill",
     "serve_step",
     "shape_applicable",
+    "train_loss",
 ]

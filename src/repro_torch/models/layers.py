@@ -5,7 +5,9 @@ arguments and layouts ([b, heads, s, d] for attention).  Full-sequence
 attention goes through the ``flash_attention`` kernel on every device
 (``kernels.ops.flash_attention``: the kernel on a CUDA tensor, its plain
 version on a CPU tensor), as the JAX package's docstring says its Pallas
-kernel replaces the blockwise jnp version on the accelerator.  Decode
+kernel replaces the blockwise jnp version on the accelerator; training
+differentiates it through ``flash_attention.FlashAttention`` (the kernel
+forward, the online-softmax backward in torch ops).  Decode
 attention (one query against the cache) is plain torch: the JAX package
 has no kernel for it.  ``constrain`` (sharding) waits for the
 distributed slice.
@@ -121,7 +123,8 @@ def blockwise_attention(
     causal: bool = True,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Online-softmax attention through the ``flash_attention`` kernel.
+    """Online-softmax attention through the ``flash_attention`` kernel,
+    differentiable (``kernels.flash_attention.FlashAttention``).
 
     Query i sits at position ``q_offset + i`` (top-left alignment, as the
     JAX package's blockwise version): with ``causal`` it sees keys

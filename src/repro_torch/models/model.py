@@ -6,20 +6,26 @@ Parameters keep the JAX package's tree: a nested dict whose per-layer
 tensors are stacked on a leading [L, ...] axis, so one tree carries
 across between the packages (``convert.params_from_numpy``).
 ``DenseLM`` and ``DecoderBlock`` are ``nn.Module`` views of that tree
-(no copies: a block's parameters are the slices of layer i); the
-functions ``forward``, ``prefill`` and ``serve_step`` take the tree as
-the JAX functions do and run through them.  Every product is full f32
-(``ref.matmul_f32``), whatever the process's TF32 setting.
+for serving (no copies: a block's parameters are the slices of layer i,
+registered without grad); ``prefill`` and ``serve_step`` take the tree
+as the JAX functions do and run through them.  ``forward`` and
+``train_loss`` are functional over the tree's own tensors, so gradients
+reach leaves that require them, with each layer rematerialised as the
+JAX package's ``_maybe_remat`` does (``torch.utils.checkpoint``).  Every
+product is full f32 (``ref.matmul_f32``, backward included), whatever
+the process's TF32 setting.
 
 Families other than dense raise ``NotImplementedError`` naming the
 ROADMAP item they wait for.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from .config import ModelConfig
 from .layers import mrope_positions, rms_norm
@@ -34,6 +40,7 @@ __all__ = [
     "DecoderBlock",
     "DenseLM",
     "forward",
+    "train_loss",
     "prefill",
     "serve_step",
     "cache_specs",
@@ -126,10 +133,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return out
 
 
-def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked [L, ...] block tree (views)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
+def layer_trees(blocks: dict) -> list:
+    """The stacked [L, ...] block tree as L per-layer dicts of views
+    (``unbind``: a backward through them stacks the layers' gradients
+    once)."""
+    flat = {path: torch.unbind(t, 0) for path, t in flat_items(blocks)}
+    out = []
+    for i in range(len(next(iter(flat.values())))):
+        layer: dict = {}
+        for path, ts in flat.items():
+            _put(layer, path, ts[i])
+        out.append(layer)
+    return out
 
 
 # =====================================================================
@@ -137,7 +152,11 @@ def layer_params(blocks: dict, i: int) -> dict:
 # =====================================================================
 class _TreeModule(nn.Module):
     """Registers the leaves of a nested dict of tensors as parameters
-    (no grad; the tensors themselves, not copies) and rebuilds the dict."""
+    and rebuilds the dict.  The modules serve: their parameters are
+    registered without grad (views of the tree's storage, not copies),
+    so a prefill never records a backward.  Training does not go
+    through them: ``train_loss`` runs on the tree's own leaves, which
+    the trainer marks ``requires_grad_()``."""
 
     def _register_tree(self, tree: dict) -> None:
         self._paths = []
@@ -178,32 +197,18 @@ class DenseLM(_TreeModule):
         self.cfg = cfg
         self._register_tree({k: v for k, v in params.items() if k != "blocks"})
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, layer_params(params["blocks"], i))
-            for i in range(cfg.n_layers))
+            DecoderBlock(cfg, p) for p in layer_trees(params["blocks"]))
 
     def embed_tokens(self, tokens):
-        x = self.embed[tokens]
-        if self.cfg.scale_embedding:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
-        return x
+        return _embed(self.tree(), tokens, self.cfg)
 
     def unembed(self, x):
-        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return matmul_f32(x, w)
-
-    def positions(self, b: int, s: int, device) -> torch.Tensor:
-        pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
-        return mrope_positions(pos) if self.cfg.rope_type == "mrope" else pos
+        return _unembed(self.tree(), x, self.cfg)
 
     def forward(self, tokens, positions=None, return_hidden: bool = False):
         """Full-sequence forward -> logits [b, s, vocab] (or hidden)."""
-        b, s = tokens.shape
-        pos = self.positions(b, s, tokens.device) if positions is None else positions
-        x = self.embed_tokens(tokens)
-        for blk in self.blocks:
-            x = blk(x, pos)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x if return_hidden else self.unembed(x)
+        return _forward(self.tree(), [blk.tree() for blk in self.blocks],
+                        tokens, self.cfg, positions, return_hidden)
 
     def prefill(self, tokens, positions=None):
         """Last-position logits [b, vocab] of the full forward (only the
@@ -223,10 +228,108 @@ class DenseLM(_TreeModule):
 # =====================================================================
 # The JAX package's functional API
 # =====================================================================
+def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+    return mrope_positions(pos) if cfg.rope_type == "mrope" else pos
+
+
+def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.scale_embedding:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _unembed(params, x, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return matmul_f32(x, w)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep
+    the outputs of un-batched matrix products (the projections' ``mm``;
+    attention's batched products are recomputed), as JAX's
+    ``dots_with_no_batch_dims_saveable``."""
+    return (checkpoint.CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.mm.default
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` rematerialised in the backward as ``cfg`` asks (the JAX
+    package's ``_maybe_remat``): ``"full"`` keeps only its inputs,
+    ``"dots"`` its matrix products' outputs too, ``"none"`` (or
+    ``remat=False``) everything.  Nothing to keep without grad."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected "
+                         "full, dots or none")
+    context_fn = (functools.partial(
+        checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        if cfg.remat_policy == "dots" else checkpoint.noop_context_fn)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                     context_fn=context_fn)
+    return remat
+
+
+def _forward(params, layers, tokens, cfg: ModelConfig, positions,
+             return_hidden: bool) -> torch.Tensor:
+    """The full-sequence forward of ``forward`` and ``DenseLM``: the
+    embedding, final norm and head from ``params``, the decoder layers
+    from the per-layer trees ``layers``, each rematerialised as ``cfg``
+    asks."""
+    if positions is None:
+        positions = _positions(cfg, *tokens.shape, tokens.device)
+    body = _maybe_remat(
+        lambda h, p: decoder_block(h, p, cfg, positions), cfg)
+    x = _embed(params, tokens, cfg)
+    for p in layers:
+        x = body(x, p)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x if return_hidden else _unembed(params, x, cfg)
+
+
 def forward(params, tokens, cfg: ModelConfig, positions=None,
             return_hidden: bool = False) -> torch.Tensor:
-    """Full-sequence forward -> logits [b, s, vocab] (or hidden)."""
-    return DenseLM(cfg, params)(tokens, positions, return_hidden)
+    """Full-sequence forward -> logits [b, s, vocab] (or hidden), on the
+    tree's own tensors: differentiable in every leaf that requires grad,
+    each layer rematerialised as ``cfg`` asks."""
+    _require_dense(cfg)
+    return _forward(params, layer_trees(params["blocks"]), tokens, cfg,
+                    positions, return_hidden)
+
+
+def _nll(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
+    logits = _unembed(params, x, cfg).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
+    [b, s] integer tensors, optional ``positions``); logits in f32.  With
+    ``cfg.loss_chunk``, unembedding and the loss go one chunk of that
+    many positions at a time, summed, as the JAX package's scan."""
+    labels = batch["labels"]
+    x = forward(params, batch["tokens"], cfg,
+                positions=batch.get("positions"), return_hidden=True)
+    if cfg.loss_chunk:
+        b, s, _ = x.shape
+        c = min(cfg.loss_chunk, s)
+        if s % c:
+            raise ValueError(f"loss_chunk {cfg.loss_chunk}: sequence length "
+                             f"{s} is not a multiple of {c}")
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, c):
+            tot = tot + torch.sum(_nll(params, x[:, i:i + c],
+                                       labels[:, i:i + c], cfg))
+        return tot / (b * s)
+    return torch.mean(_nll(params, x, labels, cfg))
 
 
 def prefill(params, tokens, cfg: ModelConfig, positions=None):

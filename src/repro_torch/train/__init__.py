@@ -1,0 +1,21 @@
+"""Training substrate on PyTorch: AdamW, the train step with microbatch
+accumulation, checkpoint/restart (file-compatible with the JAX
+package's) and straggler detection — the JAX package's ``repro.train``
+without ``remesh`` (ROADMAP item 15b.5)."""
+from .optimizer import AdamWConfig, OptState, adamw_init, adamw_update
+from .train_step import TrainConfig, make_train_step
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .elastic import StragglerDetector
+
+__all__ = [
+    "AdamWConfig",
+    "OptState",
+    "adamw_init",
+    "adamw_update",
+    "TrainConfig",
+    "make_train_step",
+    "latest_step",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "StragglerDetector",
+]

@@ -622,8 +622,10 @@ def test_flash_attention_refusals(card):
         ops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
     with pytest.raises(ValueError, match="multiple of KVH"):
         ops.flash_attention(q, q[:, :1].expand(1, 3, 64, 64).contiguous(), q)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q.clone().requires_grad_(), q, q)
+    # a grad-requiring input is no longer refused: it takes the
+    # autograd.Function (the kernel forward, the torch-ops backward)
+    out = ops.flash_attention(q.clone().requires_grad_(), q, q)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
 
 
 def test_lm_prefill_goes_through_the_kernel(card):
@@ -759,3 +761,81 @@ def test_edge_butterflies_csr_kernel_route_on_the_card(card):
         if alive is None:
             assert np.array_equal(got.cpu().numpy(),
                                   csr.edge_butterflies0(w))
+
+
+# relative L2 of a gradient through the kernel against torch autograd
+# through the plain version: the f32 forward's gate is 1e-4 a row
+# (chip_smoke.py, ATTN_ROW_RTOL), and the backward is the same torch ops
+# on both sides, so the gradients inherit that
+GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("shape,kv,causal,offset", [
+    ((2, 8, 256, 64), 2, True, 0),       # the 3xTF32 route, GQA
+    ((2, 4, 200, 32), 2, True, 0),       # the CUDA-core route, ragged
+    ((1, 4, 64, 64), 4, True, 192),      # an offset: the cache's end
+    ((1, 4, 96, 32), 1, False, 0),
+])
+def test_flash_attention_grads_on_the_card(card, shape, kv, causal, offset):
+    """dq, dk, dv through ``FlashAttention`` (the kernel forward) against
+    torch autograd through the plain version, both on the card; the
+    kernel launches once."""
+    gen = torch.Generator(card).manual_seed(sum(shape))
+    B, H, sq, D = shape
+    sk = sq + offset if offset else sq
+    q = torch.randn(shape, generator=gen, device=card)
+    k, v = (torch.randn((B, kv, sk, D), generator=gen, device=card)
+            for _ in range(2))
+    w = torch.randn(shape, generator=gen, device=card)
+    grads = []
+    for fn in (ops.flash_attention, lambda *a, **kw: ref.flash_attention_ref(
+            *a, **kw)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        (fn(*leaves, causal=causal, offset=offset) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+        if not grads[1:]:
+            assert ops.launch_counts()["flash_attention"] == 1
+    for a, b in zip(*grads):
+        assert ((a - b).norm() / b.norm()).item() <= GRAD_RTOL
+
+
+def test_reduced_train_step_on_the_card(card):
+    """One train step of a reduced TinyLlama on the card against the
+    same step on the CPU (``convert.numpy_params`` weights): loss and
+    gradient norm to 1e-5 relative, the weights to 1e-5 relative but for
+    at most 0.1 % of a tensor (Adam normalises each gradient component:
+    one whose rounding differs near 0 moves its weight by up to a step,
+    bounded by the learning rate); ``flash_attention`` launches twice a
+    layer (forward and the full-remat recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    from repro_torch.models.convert import numpy_params, params_from_numpy
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = reduced(get_config("tinyllama_1_1b"), n_layers=2)
+    tree = numpy_params(cfg, seed=3)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+        lr=1e-2, warmup_steps=1)))
+    out = {}
+    for dev in ("cpu", card):
+        params = params_from_numpy(tree, cfg, device=dev)
+        ops.reset_launch_counts()
+        out[str(dev)] = step(params, adamw_init(params),
+                             {k: v.to(dev) for k, v in batch.items()})
+        if dev is card:
+            assert ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers
+    (p0, _, m0), (p1, _, m1) = out["cpu"], out[str(card)]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(m1[k].item(), m0[k].item(), rtol=1e-5)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        a = a.cpu().numpy()
+        b = b.numpy()
+        off = ~np.isclose(a, b, rtol=1e-5, atol=1e-6)
+        assert off.mean() <= 1e-3
+        assert np.abs(a - b).max() <= 1e-2
