@@ -73,13 +73,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    case, each in bf16 (tensor cores) and f32 (3xTF32 on the tensor
    cores; its ``split_kv`` pre-pass also timed alone, and the call held
    against its 1xTF32, 3xTF32, FP32 and memory bounds), timed beside
-   the plain version and SDPA; ChatGLM3-6B at full width and depth
-   (random weights from a ``torch.Generator``), f32: ``prefill`` at b=4,
-   s=2048 (28 kernel launches a call), ``forward``'s logits at 129 of
+   the plain version and SDPA; ChatGLM3-6B at full width and depth 7 of
+   its 28 (random weights from a ``torch.Generator``), f32: ``prefill`` at
+   b=4, s=2048 (7 kernel launches a call), ``forward``'s logits at 129 of
    the first 512 positions and a prefill of those 512 held to
    teacher-forced ``serve_step``;
    ``ContinuousBatcher`` serving 8 requests through 4 slots, then again
-   with an EOS; the same model in bf16 (12.5 GB): ``prefill`` at b=4,
+   with an EOS; the same model at full depth in bf16 (12.5 GB):
+   ``prefill`` at b=4,
    s=2048 timed twice (28 launches each), and at 256 positions its
    logits and ``forward``'s held to a bf16 teacher-forced decode within
    relative 3e-2; the depth-2 model on ``numpy_params`` held to the JAX
@@ -93,8 +94,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    from-scratch re-peel and rebuild on the card — θ, partition, ⋈init,
    ranges, PeelStats and the 15 packed-forest arrays, density allclose —
    and to the JAX package's digests in ``tests/goldens/torch_stream.json``
-   (recorded by ``tests/goldens/record_torch_stream.py``); tip-1m for
-   ``STREAM_1M["epochs"]`` epochs of 2 048 events, θ and stats held every
+   (recorded by ``tests/goldens/record_torch_stream.py``); tip-1m's
+   generator at a quarter of its scale (``STREAM_LARGE``: 250 000 edges)
+   for one epoch of 2 048 events, θ and stats held every
    epoch, the forest at the last, each epoch's report beside the
    re-peel's seconds; then ``python -m repro_torch.launch.stream
    --dryrun`` in its own process.
@@ -162,6 +164,33 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    (160 experts, top-6, 65 536 tokens) on the card equal to the CPU's,
    and ``tests/test_system.py``'s assignment equal to the port's BUP
    oracle (``core/ref.py``).
+14. moe — the MoE family at full width (random weights from a seeded
+   ``torch.Generator`` unless said).  ``flash_attention`` at DeepSeek-V2's
+   MLA prefill shape (128/128 heads, S 2 048, q/k 192 dims, v 128: the
+   wrapper zero-pads to the D 256 instance and cuts the output to 128),
+   bf16 and f32, against its plain version at b 1 (phase 9's gates),
+   timed at b 1 and b 4 beside SDPA.  DeepSeek-V2 at depth 2 in f32
+   (36.6 GB): ``prefill`` at b=4, s=2048 twice (2 launches each); layer
+   0's ``moe_layer`` on the forward's hidden states (C 96 at the published
+   capacity factor 1.25) held to an independent per-expert loop within
+   ``MOE_RTOL``, with the dropped (token, expert) pairs counted (> 0);
+   ``forward`` at 17 of the first 256 positions held to teacher-forced
+   ``serve_step`` through the naive and the absorbed MLA decode, and the
+   two held to each other, at capacity factor E / k (C >= s: nothing is
+   dropped, as the JAX test's ``reduced`` does with 8.0); the
+   ``ContinuousBatcher`` (8 requests, 4 slots, then the EOS rerun); the
+   router's top 6 of the prefill's 8 192 tokens through ``moe_affinity``
+   on the card equal to the CPU's.  The same weights in bf16: ``prefill``
+   twice, its last-position logits within relative 3e-2 of the f32 ones.
+   DBRX at depth 1 in f32 (18 GB): ``prefill`` of b=4 × s=2048 Zipf
+   tokens (the port's synthetic stream, a text-like load) twice (GQA
+   48/8 at D 128), its ``moe_layer`` held to the loop (C 640).
+   ``python -m repro_torch.launch.serve --arch deepseek_v2_236b
+   --reduced`` in its own process.  DeepSeek-V2 at depth 1 on
+   ``numpy_params`` (drawn in a thread from the phase's start) held to
+   the JAX package's logits in ``tests/goldens/torch_moe.json``
+   (recorded by ``tests/goldens/record_torch_moe.py``; B 2, S 128, C 8:
+   the forward drops pairs; the least router margin printed).
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -1402,8 +1431,11 @@ _ATTN_SHAPES = (
      None),
 )
 LM = dict(
-    arch="chatglm3_6b", batch=4, seq=2048, stride=4, f32_check_seq=512,
-    bf16_check_seq=256,
+    # the f32 model (prefill, the decode check, the batcher, the decode
+    # profile) at full width and f32_layers of the 28 layers; the bf16
+    # model at full depth
+    arch="chatglm3_6b", batch=4, seq=2048, stride=4, f32_layers=7,
+    f32_check_seq=512, bf16_check_seq=256,
     kernel_cases=tuple((f"{label} {tag}", qs, ks, causal, offset, dt)
                        for label, qs, ks, causal, offset in _ATTN_SHAPES
                        for tag, dt in (("bf16", "bfloat16"),
@@ -1426,19 +1458,20 @@ def attention_case(case, dev, gen):
     return q, k, v, causal, offset
 
 
-def attention_work(q, k, causal, offset):
-    """(operations, bytes) the function needs on these inputs: two
-    multiply-adds per visible (query, key) pair and head dim, q/k/v read
-    and the output written once."""
-    B, H, sq, D = q.shape
-    KVH, sk = k.shape[1], k.shape[2]
+def attention_work(q_shape, k_shape, dv, elt, causal, offset):
+    """(operations, bytes) attention needs on q [B, H, sq, D], k [B, KVH,
+    sk, D] and v of head dim ``dv``, ``elt`` bytes an element: two
+    multiply-adds per visible (query, key) pair for each of q·k's D and
+    p·v's dv dims; q, k, v read and the output written once."""
+    B, H, sq, D = q_shape
+    KVH, sk = k_shape[1], k_shape[2]
     off = sk - sq if offset is None else offset
     if causal:
         seen = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
     else:
         seen = sq * sk
-    ops_count = 4.0 * B * H * D * seen
-    nbytes = q.element_size() * (2 * B * H * sq * D + 2 * B * KVH * sk * D)
+    ops_count = 2.0 * B * H * seen * (D + dv)
+    nbytes = elt * (B * H * sq * (D + dv) + B * KVH * sk * (D + dv))
     return ops_count, nbytes
 
 
@@ -1494,7 +1527,8 @@ def check_attention(cases, dev, reps):
         if causal and q.shape[2] == k.shape[2]:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), reps)
-        ops_count, nbytes = attention_work(q, k, causal, offset)
+        ops_count, nbytes = attention_work(q.shape, k.shape, v.shape[-1],
+                                           q.element_size(), causal, offset)
         fp32 = ops_count / FP32_FLOP_PER_S * 1e3
         bf16 = ops_count / BF16_FLOP_PER_S * 1e3
         tf32 = ops_count / TF32_FLOP_PER_S * 1e3
@@ -1657,16 +1691,15 @@ def profile_decode(model, tokens, seq, dev, steps=8) -> dict:
     return out
 
 
-def lm_golden_phase(golden, cfg, dev) -> dict:
-    """Depth-2 ChatGLM3-6B at full width on ``numpy_params``: forward and
-    teacher-forced decode held to the JAX package's recorded logits."""
+def golden_tree(golden, cfg):
+    """``numpy_params`` of ``cfg`` at the golden's seed, after the
+    recorded weights' checks (host numpy only: it may run in a thread
+    beside device work, numpy's generator releases the interpreter
+    lock)."""
     import numpy as np
-    import torch
 
-    from repro_torch.models import DenseLM
-    from repro_torch.models.convert import numpy_params, params_from_numpy
+    from repro_torch.models.convert import numpy_params
 
-    t0 = time.perf_counter()
     tree = numpy_params(cfg, seed=golden["seed"])
     for path, want in golden["param_check"].items():
         node = tree
@@ -1680,18 +1713,47 @@ def lm_golden_phase(golden, cfg, dev) -> dict:
             got = dict(first=first, sum=total)
             raise AssertionError(f"numpy_params {path}: {got} != the "
                                  f"recorder's {want} (another numpy stream)")
+    return tree
+
+
+def golden_model(golden, cfg, dev, tree=None):
+    """``cfg`` on the golden's weights (``golden_tree``, made here unless
+    given) as a ``DenseLM`` on ``dev``; and the seconds that took."""
+    from repro_torch.models import DenseLM
+    from repro_torch.models.convert import params_from_numpy
+
+    t0 = time.perf_counter()
+    if tree is None:
+        tree = golden_tree(golden, cfg)
     model = DenseLM(cfg, params_from_numpy(tree, cfg, dev))
     del tree
-    gen_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def hold_lm_golden(golden, model, dev, forward_vs_decode=True) -> dict:
+    """``model``'s forward and teacher-forced decode held to the JAX
+    package's recorded logits (and to each other where
+    ``forward_vs_decode``: not where the forward drops MoE pairs)."""
+    import torch
+
     tokens = torch.tensor(golden["tokens"], device=dev)
     pos, ids = golden["positions"], golden["ids"]
     with torch.no_grad():
         fwd = model(tokens)[:, pos]
     dec = teacher_forced(model, tokens, pos, dev)
     errs = dict(forward=hold_golden("golden forward", fwd, golden["forward"], ids),
-                decode=hold_golden("golden decode", dec, golden["decode"], ids),
-                forward_vs_decode=close_logits("golden forward vs decode",
-                                               fwd, dec))
+                decode=hold_golden("golden decode", dec, golden["decode"], ids))
+    if forward_vs_decode:
+        errs["forward_vs_decode"] = close_logits("golden forward vs decode",
+                                                 fwd, dec)
+    return errs
+
+
+def lm_golden_phase(golden, cfg, dev) -> dict:
+    """Depth-2 ChatGLM3-6B at full width on ``numpy_params``: forward and
+    teacher-forced decode held to the JAX package's recorded logits."""
+    model, gen_s = golden_model(golden, cfg, dev)
+    errs = hold_lm_golden(golden, model, dev)
     log(f"[smoke]   golden (depth {cfg.n_layers}, full width): forward and "
         f"serve_step held to the JAX package's logits, max abs errs {errs}; "
         f"weights made in {gen_s:.1f} s")
@@ -1833,15 +1895,16 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import DenseLM, init_params
 
-    on_card = torch.device(dev).type == "cuda"
     row = check_attention(lm["kernel_cases"], dev, reps)
     info = {}
 
-    # ---- the full-width model: prefill and forward against the decode path
-    cfg = cfg or get_config(lm["arch"])
+    # ---- the full-width model, cut to f32_layers: prefill and forward
+    # against the decode path
+    full = cfg or get_config(lm["arch"])
+    cfg = dataclasses.replace(full, n_layers=min(full.n_layers,
+                                                 lm["f32_layers"]))
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, dev, torch.float32)
@@ -1850,20 +1913,9 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     info["init_s"] = time.perf_counter() - t0
     b, s = lm["batch"], lm["seq"]
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
-    prefill_s = []
+    last, prefill_s = counted_prefills("prefill", model, tokens, dev,
+                                       launches)
     with torch.no_grad():
-        for _ in range(2):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            last = model.prefill(tokens)
-            sync(dev)
-            prefill_s.append(time.perf_counter() - t0)
-            counts = ops.launch_counts()
-            expect("prefill", "kernel launches", counts,
-                   {k: (cfg.n_layers * on_card if k == "flash_attention" else 0)
-                    for k in ops.KERNELS})
-            launches["flash_attention"] = (launches.get("flash_attention", 0)
-                                           + counts["flash_attention"])
         # the decode check runs over the first f32_check_seq positions
         # (a decode step costs ~38 ms at this width)
         n = min(lm["f32_check_seq"], s)
@@ -1899,7 +1951,7 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     torch.cuda.empty_cache()
 
     # ---- the same architecture in bf16: prefill on the tensor-core kernel
-    info["bf16"] = bf16_model(cfg, lm, dev, launches)
+    info["bf16"] = bf16_model(full, lm, dev, launches)
     torch.cuda.empty_cache()
 
     # ---- the recorded depth-2 golden
@@ -1909,20 +1961,27 @@ def phase_lm(golden, dev, launches, cfg=None, golden_cfg=None, lm=LM,
     torch.cuda.empty_cache()
 
     # ---- the CLI, in its own process
+    info["cli_s"], info["cli"] = serve_cli(lm["cli"], dev)
+    return row, info
+
+
+def serve_cli(args, dev) -> tuple:
+    """``python -m repro_torch.launch.serve`` with ``args`` on ``dev`` in
+    its own process; it must exit 0 and print a sample.  Returns its
+    seconds and output lines."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *lm["cli"],
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args,
            "--device", str(dev)]
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0 or "[serve] sample:" not in proc.stdout:
         raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
                              f"{proc.stdout}\n{proc.stderr}")
-    info["cli_s"] = time.perf_counter() - t0
-    info["cli"] = proc.stdout.strip().splitlines()
-    log(f"[smoke]   {' '.join(cmd[1:])}: exit 0 in {info['cli_s']:.1f} s: "
-        f"{info['cli']}")
-    return row, info
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"[smoke]   {' '.join(cmd[1:])}: exit 0 in {dt:.1f} s: {lines}")
+    return dt, lines
 
 
 def main() -> int:
@@ -1961,17 +2020,19 @@ def main() -> int:
     with open(os.path.join(ROOT, "tests", "goldens",
                            "torch_multiserve.json")) as f:
         mt_golden = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens", "torch_moe.json")) as f:
+        moe_golden = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         return run_phases(fullsize, realdata, engines, lm_golden, streams,
-                          mt_golden, dev, smi, tmp)
+                          mt_golden, moe_golden, dev, smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
-               dev, smi, tmp) -> int:
+               moe_golden, dev, smi, tmp) -> int:
     import torch
 
     with Phase("1-setup"):
@@ -2070,6 +2131,13 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
             cli=train_info["cli"]["flash_attention_launches"],
             curriculum=train_info["curriculum"]["flash_attention_launches"])
 
+    with Phase("14-moe"):
+        launched = launches.get("flash_attention", 0)
+        rows["flash_attention"]["mla"], moe_info = phase_moe(moe_golden, dev,
+                                                             launches)
+        rows["flash_attention"]["mla"]["launches"] = (
+            launches["flash_attention"] - launched)
+
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
@@ -2088,7 +2156,8 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                                        "bound_by_product", "bound_3xtf32_ms",
                                        "random_f32_rel_err", "library",
                                        "ms_packed", "pack_ms", "int_mm_ms",
-                                       "tiled_e2e_ms", "training_launches")
+                                       "tiled_e2e_ms", "training_launches",
+                                       "mla")
                if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
@@ -2096,7 +2165,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                         engine_seconds=engine_seconds, lm=lm_info,
                         traced_tip_1m=trace_info, stream=stream_info,
                         multitenant=mt_info, distributed=dist_info,
-                        train=train_info)))
+                        train=train_info, moe=moe_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -2113,9 +2182,14 @@ FOREST_FIELDS = ("node_level", "parent", "entity_node", "member_off",
                  "member_ids", "child_off", "child_ids", "tin", "tout",
                  "ent_order", "estart", "eend", "node_m", "node_nu",
                  "node_nv")
-# tip-1m's stream: epochs, events an epoch, seed of epoch 0's events (one
-# epoch: an initial peel, an epoch and their re-peels take ~160 s)
-STREAM_1M = dict(epochs=1, batch=2048, event_seed=2000)
+# the large tip stream: tip-1m's generator at a quarter of its scale (an
+# epoch of tip-1m itself, with its initial peel and the re-peels, took
+# ~150 s of the smoke's 1 200), its P; epochs, events an epoch, seed of
+# epoch 0's events
+STREAM_LARGE = dict(name="tip-250k",
+                    graph=dict(n_u=25_000, n_v=12_500, m=250_000, alpha=0.6,
+                               seed=0),
+                    P=16, epochs=1, batch=2048, event_seed=2000)
 
 
 def sha16(a) -> str:
@@ -2292,7 +2366,7 @@ def stream_dryrun(dev) -> float:
 def phase_stream(streams, fullsize, dev, launches) -> dict:
     """The streaming updater on the card: the 60k graph as wing and as
     tip (``wedge_count`` in every epoch), each epoch held to a re-peel
-    and to ``torch_stream.json``; tip-1m; then ``--dryrun``."""
+    and to ``torch_stream.json``; ``STREAM_LARGE``; then ``--dryrun``."""
     from repro_torch.core.graph import powerlaw_bipartite
     from repro_torch.streaming import StreamConfig
 
@@ -2308,13 +2382,13 @@ def phase_stream(streams, fullsize, dev, launches) -> dict:
             streams["event_seed"], dev, launches,
             want=streams["cases"][name],
             kernel="wedge_count" if cfg.kind == "tip" else None)
-    want = fullsize["tip-1m"]
-    g = powerlaw_bipartite(**want["graph"])
-    cfg = StreamConfig(kind="tip", engine="csr", P=want["P"],
+    big = STREAM_LARGE
+    g = powerlaw_bipartite(**big["graph"])
+    cfg = StreamConfig(kind="tip", engine="csr", P=big["P"],
                        fd_driver="device")
-    info["tip-1m"] = stream_case("tip-1m", g, cfg, STREAM_1M["epochs"],
-                                 STREAM_1M["batch"], STREAM_1M["event_seed"],
-                                 dev, launches, forest_every=False)
+    info[big["name"]] = stream_case(big["name"], g, cfg, big["epochs"],
+                                    big["batch"], big["event_seed"], dev,
+                                    launches, forest_every=False)
     info["dryrun_s"] = stream_dryrun(dev)
     return info
 
@@ -3596,6 +3670,508 @@ def phase_train(fullsize, dev, tmp, launches, tr=TRAIN, smi="") -> dict:
     info["moe"] = train_moe(tr["moe"], dev)
     return info
 
+
+# ---------------------------------------------------------------------
+# phase 14: the MoE family (DeepSeek-V2 with MLA, DBRX) and
+# flash_attention at MLA's head dims
+# ---------------------------------------------------------------------
+# moe_layer against the per-expert loop: ‖Δ‖/‖loop‖ (f32; only the
+# summation order of the products differs)
+MOE_RTOL = 1e-4
+MOE = dict(
+    # the kernel at DeepSeek-V2's prefill attention: 128/128 heads, q/k of
+    # 128 + 64 dims, v of 128; checked against its plain version at b 1
+    # (the plain f32 scores at b 4 would take 8.6 GB), timed at b 1 and
+    # at the prefill's b 4
+    attention=dict(label="deepseek-v2 MLA prefill", heads=128, seq=2048,
+                   dqk=192, dv=128, check_batch=1, time_batch=4, reps=10),
+    deepseek=dict(arch="deepseek_v2_236b", n_layers=2, batch=4, seq=2048,
+                  seed=0, check_seq=256, stride=16,
+                  serve=dict(slots=4, requests=8, prompt=(16, 128),
+                             max_new=32, max_seq=256, eos_request=1,
+                             eos_index=7)),
+    dbrx=dict(arch="dbrx_132b", n_layers=1, batch=4, seq=2048, seed=1),
+    affinity_P=8,
+    cli=["--arch", "deepseek_v2_236b", "--reduced"],
+)
+
+
+def check_mla_attention(spec, dev) -> dict:
+    """``ops.flash_attention`` at MLA's head dims (q/k ``dqk``, v ``dv``;
+    zero-padded to the next instance by the wrapper) against its plain
+    version, in bf16 and f32, at ``check_batch``; timed there beside the
+    plain version and SDPA, and at the prefill's ``time_batch`` beside
+    SDPA.  Each dtype's bound from the true work and from the padded
+    work, on the units its route runs on."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    H, S, dqk, dv = spec["heads"], spec["seq"], spec["dqk"], spec["dv"]
+    P = fa.padded_head_dim(dqk, dv)
+    reps = spec["reps"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rates = {"bfloat16": BF16_FLOP_PER_S, "float32": TF32_FLOP_PER_S / 3}
+    cases = []
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+
+        def draw(B):
+            return [torch.randn((B, H, S, d), generator=gen,
+                                device=dev).to(dtype) for d in (dqk, dqk, dv)]
+
+        q, k, v = draw(spec["check_batch"])
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        if got.shape != want.shape:
+            raise AssertionError(f"flash_attention MLA {dt}: shape "
+                                 f"{tuple(got.shape)} != {tuple(want.shape)}")
+        delta = got.float() - want.float()
+        err = delta.abs().max().item()
+        row_err = (delta.norm(dim=-1) / want.float().norm(dim=-1)).max().item()
+        if not (err <= ATTN_ATOL[dt] and row_err <= ATTN_ROW_RTOL[dt]):
+            raise AssertionError(
+                f"flash_attention MLA {dt}: max abs err {err} (limit "
+                f"{ATTN_ATOL[dt]}), worst row's relative err {row_err} "
+                f"(limit {ATTN_ROW_RTOL[dt]}) against the plain version")
+        del got, want, delta
+        row = dict(case=spec["label"], dtype=dt, head_dims=[dqk, dv],
+                   padded_head_dim=P,
+                   route=(fa.route(dtype, P) if q.is_cuda
+                          else "plain version"),
+                   max_abs_err=err, row_rel_err=row_err)
+        for tag, B in (("check", spec["check_batch"]),
+                       ("prefill", spec["time_batch"])):
+            if tag == "prefill":
+                del q, k, v
+                q, k, v = draw(B)
+            ops_true, bytes_true = attention_work(
+                q.shape, k.shape, dv, q.element_size(), True, None)
+            ops_pad, bytes_pad = attention_work(
+                (B, H, S, P), (B, H, S, P), P, q.element_size(), True, None)
+            mem = bytes_true / HBM_BYTES_PER_S * 1e3
+            instance_ms = None
+            if tag == "prefill":
+                # the D P instance alone on inputs padded beforehand: the
+                # wrapper's call less its three pads
+                padded = fa.pad_head_dims(q, k, v)
+                instance_ms = cuda_ms(lambda: ops.flash_attention(
+                    *padded, causal=True, scale=dqk ** -0.5), reps)
+                del padded
+            row[tag] = dict(
+                batch=B, ms=cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=True), reps),
+                plain_ms=(cuda_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=True), max(1, reps // 4))
+                          if tag == "check" else None),
+                library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), reps) if q.is_cuda else None),
+                ops_true=ops_true, ops_padded=ops_pad, bytes=bytes_true,
+                instance_ms=instance_ms,
+                bound_ms=max(ops_true / rates[dt] * 1e3, mem),
+                bound_padded_ms=max(ops_pad / rates[dt] * 1e3,
+                                    bytes_pad / HBM_BYTES_PER_S * 1e3),
+                bound_hbm_ms=mem)
+        log(f"[smoke]   flash_attention {spec['label']} {dt} (D {dqk} / Dv "
+            f"{dv} padded to {P}, {row['route']}): max abs err {err:.2e} "
+            f"(tol {ATTN_ATOL[dt]}), worst row {row_err:.2e} relative (tol "
+            f"{ATTN_ROW_RTOL[dt]}); b {row['check']['batch']}: "
+            f"{row['check']}; b {row['prefill']['batch']}: {row['prefill']}")
+        cases.append(row)
+        del q, k, v
+    first = cases[0]["check"]
+    return dict(ms=first["ms"], plain_ms=first["plain_ms"],
+                library_ms=first["library_ms"], bound_ms=first["bound_ms"],
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                cases=cases)
+
+
+def ffn_input(model, tokens):
+    """The hidden states layer 0's FFN reads in a forward of ``tokens``:
+    rms_norm(x + attention(rms_norm(x))), one attention launch."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import _positions
+    from repro_torch.models.transformer import attention, mla_attention
+
+    cfg = model.cfg
+    p = model.blocks[0].tree()
+    pos = _positions(cfg, *tokens.shape, tokens.device)
+    x = model.embed_tokens(tokens)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + (mla_attention if cfg.is_mla else attention)(h, p["attn"], cfg,
+                                                         pos)
+    return rms_norm(x, p["norm2"], cfg.norm_eps)
+
+
+def expert_loop(x, p, cfg, keep_last=False):
+    """An independent MoE layer: for each group and expert, the tokens
+    whose top k (``torch.topk`` of the f32 router softmax, gates
+    renormalised) hold the expert, in sequence order; the first C of them
+    (the last C with ``keep_last``: a planted fault) through the expert's
+    FFN, weighted by their gate; plus the shared experts.  Returns the
+    output and the number of (token, expert) pairs dropped."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import matmul_f32
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.moe import capacity
+
+    b, s, _ = x.shape
+    C = capacity(cfg, s)
+    probs = torch.softmax(matmul_f32(x.float(), p["router"].float()), dim=-1)
+    gates, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    out = torch.zeros_like(x)
+    dropped = 0
+    for e in range(cfg.n_experts):
+        hit = idx == e                                   # [b, s, k]
+        w = (gates * hit).sum(dim=-1)                    # [b, s]
+        for i in range(b):
+            toks = torch.nonzero(hit[i].any(dim=-1)).flatten()
+            dropped += max(0, toks.numel() - C)
+            toks = toks[-C:] if keep_last else toks[:C]
+            if toks.numel() == 0:
+                continue
+            xe = x[i, toks]
+            g = matmul_f32(xe, p["we1"][e])
+            g = (F.silu(g) if cfg.mlp_type == "swiglu"
+                 else F.gelu(g, approximate="tanh"))
+            y = matmul_f32(g * matmul_f32(xe, p["we3"][e]), p["we2"][e])
+            out[i, toks] += w[i, toks, None].to(x.dtype) * y
+    if cfg.n_shared_experts:
+        out = out + mlp(x, p["shared"], cfg.mlp_type)
+    return out, dropped
+
+
+def router_margin(x, p, cfg) -> float:
+    """The least gap, over the tokens of x, between the k-th and the
+    (k+1)-th router probability: a near-tie there can send a token to
+    another expert under another summation order."""
+    import torch
+
+    from repro_torch.kernels.ref import matmul_f32
+
+    probs = torch.softmax(matmul_f32(x.float(), p["router"].float()), dim=-1)
+    top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+    return (top[..., -2] - top[..., -1]).min().item()
+
+
+def moe_layer_check(label, model, tokens, dev) -> dict:
+    """Layer 0's ``moe_layer`` on the forward's hidden states held to
+    ``expert_loop`` within ``MOE_RTOL`` relative L2; the drops counted,
+    and at least one needed (the check is of the capacity too)."""
+    import torch
+
+    from repro_torch.models.moe import capacity, moe_layer
+
+    cfg = model.cfg
+    with torch.no_grad():
+        x = ffn_input(model, tokens)
+        p = model.blocks[0].tree()["ffn"]
+        sync(dev)
+        t0 = time.perf_counter()
+        got = moe_layer(x, p, cfg)
+        sync(dev)
+        layer_s = time.perf_counter() - t0
+        want, dropped = expert_loop(x, p, cfg)
+    rel = ((got - want).norm() / want.norm()).item()
+    C = capacity(cfg, tokens.shape[1])
+    out = dict(capacity=C, dropped=dropped,
+               pairs=tokens.numel() * cfg.top_k, rel_l2=rel,
+               moe_layer_s=layer_s, router_margin=router_margin(x, p, cfg))
+    log(f"[smoke]   {label} layer 0 moe_layer (E {cfg.n_experts}, top-"
+        f"{cfg.top_k}, C {C} at capacity_factor {cfg.capacity_factor}) vs "
+        f"the per-expert loop: relative L2 {rel:.3e} (limit {MOE_RTOL}); "
+        f"{dropped} of {out['pairs']} (token, expert) pairs dropped; "
+        f"{layer_s * 1e3:.1f} ms; router margin {out['router_margin']:.3e}")
+    if not rel <= MOE_RTOL:
+        raise AssertionError(f"{label}: moe_layer differs from the "
+                             f"per-expert loop by {rel} > {MOE_RTOL}")
+    if dropped == 0:
+        raise AssertionError(f"{label}: no (token, expert) pair dropped at "
+                             f"C {C}: the capacity is not exercised")
+    return out
+
+
+def counted_prefills(label, model, tokens, dev, launches, n=2):
+    """``n`` timed prefills of ``tokens``, each launching
+    ``flash_attention`` once a layer on the card (none on the CPU) and no
+    other kernel; returns the last logits and the seconds."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    want = {k: (model.cfg.n_layers * (torch.device(dev).type == "cuda")
+                if k == "flash_attention" else 0) for k in ops.KERNELS}
+    secs = []
+    with torch.no_grad():
+        for _ in range(n):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            last = model.prefill(tokens)
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            expect(label, "kernel launches", counts, want)
+            launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                           + counts["flash_attention"])
+    return last, secs
+
+
+def zipf_tokens(b, s, vocab, seed, dev):
+    """[b, s] tokens of the port's synthetic stream (``data.pipeline``,
+    Zipf 1.3 as text is: a quarter of them one token): a text-like,
+    skewed load on the experts."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, synthetic_batches
+
+    toks = next(synthetic_batches(DataConfig(b, s, vocab, seed)))["tokens"]
+    return torch.from_numpy(toks).to(device=dev, dtype=torch.int64)
+
+
+def _moe_config(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return spec.get("cfg") or dataclasses.replace(
+        get_config(spec["arch"]), n_layers=spec["n_layers"])
+
+
+def _free(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def deepseek_f32(spec, dev, launches, affinity_P) -> tuple:
+    """DeepSeek-V2 in f32 (random weights from a seeded
+    ``torch.Generator``): timed prefills, layer 0's MoE against the
+    per-expert loop, decode against forward without drops, the batcher,
+    the router's top k through ``moe_affinity``.  Returns the numbers,
+    the prefill's last-position logits and the tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.analysis import moe_affinity
+    from repro_torch.models import DenseLM, init_params
+    from repro_torch.models.moe import capacity, route
+
+    cfg = _moe_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev, torch.float32)
+    model = DenseLM(cfg, params)
+    sync(dev)
+    info = dict(init_s=time.perf_counter() - t0, weights_gb=sum(
+        p.numel() * p.element_size() for p in model.parameters()) / 1e9)
+    b, s = spec["batch"], spec["seq"]
+    # uniform tokens: the router's top k of Zipf tokens share experts so
+    # much that moe_affinity's butterfly counts pass f32's exact range
+    # (the dense engine's OverflowError, as in JAX)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    last, info["prefill_s"] = counted_prefills(
+        f"{cfg.name} f32 prefill", model, tokens, dev, launches)
+    info["prefill_tok_s"] = [b * s / t for t in info["prefill_s"]]
+    log(f"[smoke]   {cfg.name} f32, depth {cfg.n_layers} at full width "
+        f"({info['weights_gb']:.2f} GB, made in {info['init_s']:.1f} s): "
+        f"prefill b={b} s={s} in {info['prefill_s']} s "
+        f"({info['prefill_tok_s']} tok/s), {cfg.n_layers} flash_attention "
+        f"launches each")
+    info["moe"] = moe_layer_check(f"{cfg.name} f32", model, tokens, dev)
+
+    # decode against forward where nothing is dropped: capacity_factor
+    # E / k gives C >= s (what the JAX test's reduced() does with 8.0)
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    n = min(spec["check_seq"], s)
+    if capacity(nd, n) < n:
+        raise AssertionError(f"capacity {capacity(nd, n)} < {n}")
+    pos = sorted(set(range(0, n, spec["stride"])) | {n - 1})
+    ids = tokens[:, :n].contiguous()
+    with torch.no_grad():
+        fwd = DenseLM(nd, params)(ids)[:, pos]
+    t0 = time.perf_counter()
+    naive = teacher_forced(DenseLM(nd, params), ids, pos, dev)
+    sync(dev)
+    t1 = time.perf_counter()
+    absorbed = teacher_forced(
+        DenseLM(dataclasses.replace(nd, mla_absorb=True), params), ids, pos,
+        dev)
+    sync(dev)
+    t2 = time.perf_counter()
+    info["decode"] = dict(
+        capacity_factor=nd.capacity_factor, positions=len(pos), steps=n,
+        naive_s=t1 - t0, absorbed_s=t2 - t1,
+        forward_vs_naive=close_logits("forward vs naive MLA decode", fwd,
+                                      naive),
+        forward_vs_absorbed=close_logits("forward vs absorbed MLA decode",
+                                         fwd, absorbed),
+        absorbed_vs_naive=close_logits("absorbed vs naive MLA decode",
+                                       absorbed, naive))
+    del fwd, naive, absorbed
+    log(f"[smoke]   {cfg.name} f32 decode vs forward at capacity_factor "
+        f"{nd.capacity_factor:.4g} (C >= s, no drops), {len(pos)} of the "
+        f"first {n} positions: {info['decode']} (atol {LOGIT_ATOL})")
+
+    info["serve"] = serve_requests(cfg, params, spec["serve"], dev, cfg.vocab)
+
+    with torch.no_grad():
+        x = ffn_input(model, tokens)
+        _, idx = route(x, model.blocks[0].tree()["ffn"]["router"], cfg)
+    assign = idx.reshape(-1, cfg.top_k).cpu().numpy()
+    t0 = time.perf_counter()
+    got = moe_affinity(assign, cfg.n_experts, P=affinity_P, device=dev)
+    t1 = time.perf_counter()
+    want = moe_affinity(assign, cfg.n_experts, P=affinity_P, device="cpu")
+    expect("moe_affinity of the router's top k", "θ",
+           np.asarray(got).tolist(), np.asarray(want).tolist())
+    info["affinity"] = dict(tokens=int(assign.shape[0]),
+                            theta_max=int(np.max(got)),
+                            distinct_theta=int(np.unique(got).size),
+                            device_s=t1 - t0)
+    log(f"[smoke]   layer 0's router top-{cfg.top_k} of the prefill's "
+        f"tokens through moe_affinity on {dev} equal to the CPU's: "
+        f"{info['affinity']}")
+    last = last.float()
+    del model, params, x
+    _free(dev)
+    return info, last, tokens
+
+
+def deepseek_bf16(spec, dev, launches, last32, tokens) -> dict:
+    """The same weights in bf16 (the generator redrawn, then rounded):
+    timed prefills, the last-position logits within ``BF16_LOGIT_RTOL``
+    of the f32 model's, relative in the 2-norm."""
+    import torch
+
+    from repro_torch.models import DenseLM, init_params
+
+    cfg = _moe_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    model = DenseLM(cfg, init_params(cfg, gen, dev, torch.bfloat16))
+    last, secs = counted_prefills(f"{cfg.name} bf16 prefill", model, tokens,
+                                  dev, launches)
+    rel = ((last.float() - last32).norm() / last32.norm()).item()
+    b, s = tokens.shape
+    info = dict(prefill_s=secs, prefill_tok_s=[b * s / t for t in secs],
+                rel=rel)
+    log(f"[smoke]   {cfg.name} bf16: prefill b={b} s={s} in {secs} s "
+        f"({info['prefill_tok_s']} tok/s), {cfg.n_layers} flash_attention "
+        f"launches each; last-position logits vs f32 relative L2 {rel:.3e} "
+        f"(limit {BF16_LOGIT_RTOL})")
+    if not rel <= BF16_LOGIT_RTOL:
+        raise AssertionError(f"{cfg.name} bf16 prefill: relative logit error "
+                             f"{rel} > {BF16_LOGIT_RTOL} against f32")
+    del model
+    _free(dev)
+    return info
+
+
+def dbrx_f32(spec, dev, launches) -> dict:
+    """DBRX in f32: timed prefills (GQA through the kernel) and layer 0's
+    MoE against the per-expert loop."""
+    import torch
+
+    from repro_torch.models import DenseLM, init_params
+
+    cfg = _moe_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    model = DenseLM(cfg, init_params(cfg, gen, dev, torch.float32))
+    b, s = spec["batch"], spec["seq"]
+    tokens = zipf_tokens(b, s, cfg.vocab, spec["seed"], dev)
+    _, secs = counted_prefills(f"{cfg.name} f32 prefill", model, tokens, dev,
+                               launches)
+    info = dict(prefill_s=secs, prefill_tok_s=[b * s / t for t in secs])
+    log(f"[smoke]   {cfg.name} f32, depth {cfg.n_layers} at full width: "
+        f"prefill b={b} s={s} in {secs} s ({info['prefill_tok_s']} tok/s)")
+    info["moe"] = moe_layer_check(f"{cfg.name} f32", model, tokens, dev)
+    del model
+    _free(dev)
+    return info
+
+
+def phase_moe(golden, dev, launches, spec=MOE, golden_cfg=None) -> tuple:
+    """Phase 14; returns (the MLA flash_attention numbers, the rest).  The
+    golden's numpy weights (5.1 G normals at full width, most of the
+    phase's host time) are drawn in a thread while the card runs the
+    random-weight models and the CLI runs in its own process."""
+    import concurrent.futures
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+
+    golden_cfg = golden_cfg or dataclasses.replace(
+        get_config(golden["arch"]), n_layers=golden["n_layers"],
+        capacity_factor=golden["capacity_factor"])
+    seconds = {}
+    info = {}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        t_tree = time.perf_counter()
+        tree = pool.submit(golden_tree, golden, golden_cfg)
+
+        t0 = time.perf_counter()
+        row = check_mla_attention(spec["attention"], dev)
+        _free(dev)
+        seconds["attention"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["deepseek"], last32, tokens = deepseek_f32(
+            spec["deepseek"], dev, launches, spec["affinity_P"])
+        seconds["deepseek_f32"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["deepseek_bf16"] = deepseek_bf16(spec["deepseek"], dev,
+                                              launches, last32, tokens)
+        seconds["deepseek_bf16"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["dbrx"] = dbrx_f32(spec["dbrx"], dev, launches)
+        seconds["dbrx_f32"] = time.perf_counter() - t0
+
+        # ---- the CLI, in its own process
+        seconds["cli"], info["cli"] = serve_cli(spec["cli"], dev)
+
+        # ---- the recorded depth-1 golden at full width (drops in the
+        # forward)
+        t0 = time.perf_counter()
+        tree = tree.result()
+        seconds["golden_weights_wait"] = time.perf_counter() - t0
+        seconds["golden_weights"] = time.perf_counter() - t_tree
+    t0 = time.perf_counter()
+    model, upload_s = golden_model(golden, golden_cfg, dev, tree)
+    del tree
+    g_tokens = torch.tensor(golden["tokens"], device=dev)
+    with torch.no_grad():
+        x = ffn_input(model, g_tokens)
+        p = model.blocks[0].tree()["ffn"]
+        _, info["golden_dropped"] = expert_loop(x, p, golden_cfg)
+        info["golden_router_margin"] = router_margin(x, p, golden_cfg)
+    del x
+    log(f"[smoke]   golden {golden_cfg.name} (depth {golden_cfg.n_layers}, "
+        f"full width; numpy weights drawn in {seconds['golden_weights']:.1f}"
+        f" s beside the rest, {seconds['golden_weights_wait']:.1f} s of it "
+        f"waited for; on the card in {upload_s:.1f} s): the forward drops "
+        f"{info['golden_dropped']} (token, expert) pairs at C "
+        f"{capacity(golden_cfg, g_tokens.shape[1])}; the least router "
+        f"margin (k-th - (k+1)-th probability) "
+        f"{info['golden_router_margin']:.3e}")
+    info["golden"] = hold_lm_golden(golden, model, dev,
+                                    forward_vs_decode=False)
+    log(f"[smoke]   golden forward and serve_step held to the JAX package's "
+        f"logits, max abs errs {info['golden']}")
+    del model
+    _free(dev)
+    seconds["golden"] = time.perf_counter() - t0
+    info["seconds"] = seconds
+    log(f"[smoke]   phase 14 seconds by step: {seconds}")
+    return row, info
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Flash attention wrapper — ``csrc/flash_attention.cu``.
 
-``flash_attention``: softmax attention of q [B, H, Sq, D] over k, v
-[B, KVH, Sk, D] (H a multiple of KVH: query head h reads key/value head
-h // (H / KVH)), f32 accumulation, output in q's dtype.  With
+``flash_attention``: softmax attention of q [B, H, Sq, D] over k
+[B, KVH, Sk, D] and v [B, KVH, Sk, Dv] (H a multiple of KVH: query head
+h reads key/value head h // (H / KVH)), f32 accumulation, output
+[B, H, Sq, Dv] in q's dtype.  With
 ``causal``, key j is visible to query i iff j <= i + ``offset``; a row
 that sees no key gives 0.  q, k and v may be strided views (the model's
 transposed heads); only their last dimension must be contiguous.
@@ -15,7 +16,13 @@ f32 inputs with D 64, 128 or 256 take the 3×TF32 tensor-core kernel
 (each operand split into two TF32 planes, three products, f32 to within
 rounding), after ``split_kv``, its pre-pass, has written k's and v's
 planes; D 32 (the reduced presets' head dim) takes the CUDA-core kernel
-in either dtype.
+in either dtype.  Other head dims (DeepSeek-V2's MLA: D 192, Dv 128)
+take the smallest instance P >= max(D, Dv) (``padded_head_dim``): q, k
+and v are zero-padded to P (``pad_head_dims``), the instance runs with
+the caller's scale and the output is cut to Dv.  That is exact with
+respect to the kernel's arithmetic: a zero column adds +0 to every bf16 product, its
+TF32 hi and lo planes are 0, and the padded output columns are dropped.
+A head dim above 256 raises.  The plain version pads nothing.
 
 ``flash_attention`` is a ``torch.autograd.Function`` (``FlashAttention``)
 on both devices: its forward is the kernel (the plain version on a CPU
@@ -34,7 +41,8 @@ import torch
 from . import _build, ref
 
 __all__ = ["HEAD_DIMS", "FlashAttention", "attention_backward",
-           "flash_attention", "route", "split_kv"]
+           "flash_attention", "pad_head_dims", "padded_head_dim", "route",
+           "split_kv"]
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -67,6 +75,30 @@ def route(dtype, head_dim: int) -> str:
         raise ValueError(f"flash_attention: head dim {head_dim} not in "
                          f"{HEAD_DIMS}")
     return ROUTES[code]
+
+
+def padded_head_dim(d: int, dv: int) -> int:
+    """The head dim of the instance a call with q/k head dim ``d`` and v
+    head dim ``dv`` launches: the smallest of ``HEAD_DIMS`` >= both (d
+    itself where d == dv is an instance)."""
+    for p in HEAD_DIMS:
+        if p >= max(d, dv):
+            return p
+    raise ValueError(f"flash_attention: head dims {d} / {dv} above the "
+                     f"largest instance {HEAD_DIMS[-1]}")
+
+
+def pad_head_dims(q, k, v):
+    """q, k and v zero-padded in their last dim to the instance
+    ``padded_head_dim`` picks (the tensors themselves where they are
+    already one): the kernel's input for a head dim it has no instance
+    of.  The output's first Dv columns are then the attention of the
+    unpadded inputs at the same scale."""
+    P = padded_head_dim(k.shape[3], v.shape[3])
+    if q.shape[3] == v.shape[3] == P:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, P - t.shape[3]))
+                 for t in (q, k, v))
 
 
 def split_kv(k, v):
@@ -159,25 +191,25 @@ def attention_backward(q, k, v, out, dout, causal: bool, scale: float,
     no key has P = 0 (its output was 0).  Gradients in the inputs'
     dtypes."""
     B, H, sq, D = q.shape
-    KVH, sk = k.shape[1], k.shape[2]
+    KVH, sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     g = H // KVH
     f32 = torch.float32
     qf = q.to(f32).reshape(B, KVH, g, sq, D)
-    of = out.to(f32).reshape(B, KVH, g, sq, D)
-    dof = dout.to(f32).reshape(B, KVH, g, sq, D)
+    of = out.to(f32).reshape(B, KVH, g, sq, Dv)
+    dof = dout.to(f32).reshape(B, KVH, g, sq, Dv)
     kf, vf = k.to(f32), v.to(f32)
     dq = torch.zeros((B, KVH, g, sq, D), dtype=f32, device=q.device)
     dk = torch.zeros((B, KVH, sk, D), dtype=f32, device=q.device)
-    dv = torch.zeros((B, KVH, sk, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, KVH, sk, Dv), dtype=f32, device=q.device)
     for r0 in range(0, sq, BWD_BLOCK):
         r1 = min(sq, r0 + BWD_BLOCK)
         n = min(sk, r1 + offset) if causal else sk
         if n <= 0:
             continue
-        rows = (B, KVH, g * (r1 - r0), D)
-        qb = qf[:, :, :, r0:r1].reshape(rows)
-        dob = dof[:, :, :, r0:r1].reshape(rows)
-        ob = of[:, :, :, r0:r1].reshape(rows)
+        rows = (B, KVH, g * (r1 - r0))
+        qb = qf[:, :, :, r0:r1].reshape(*rows, D)
+        dob = dof[:, :, :, r0:r1].reshape(*rows, Dv)
+        ob = of[:, :, :, r0:r1].reshape(*rows, Dv)
         kb, vb = kf[:, :, :n], vf[:, :, :n]
         s = ref.matmul_f32(qb, kb.transpose(-1, -2)) * scale
         if causal:
@@ -210,30 +242,30 @@ def _forward(q, k, v, causal: bool, scale: float, offset: int):
         raise ValueError("flash_attention: takes CPU tensors (plain version) "
                          f"or CUDA tensors (the kernel), got {q.device}")
     B, H, sq, D = q.shape
-    KVH, sk = k.shape[1], k.shape[2]
+    KVH, sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}, expected float32 "
                         "or bfloat16")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if (k.shape != (B, KVH, sk, D) or v.shape != k.shape or KVH == 0
-            or H % KVH):
+    if (k.shape != (B, KVH, sk, D) or v.shape != (B, KVH, sk, Dv)
+            or KVH == 0 or H % KVH):
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}: k and v must be [B, KVH, Sk, D] with H a "
-            "multiple of KVH")
+            f"{tuple(v.shape)}: k must be [B, KVH, Sk, D] and v [B, KVH, "
+            "Sk, Dv] with H a multiple of KVH")
     q, k, v = (_rows(n, t, q.dtype, q.device)
                for n, t in (("q", q), ("k", k), ("v", v)))
-    planes = (split_kv(k, v) if route(q.dtype, D) == ROUTES[2]
+    q, k, v = pad_head_dims(q, k, v)
+    P = q.shape[3]
+    planes = (split_kv(k, v) if route(q.dtype, P) == ROUTES[2]
               else (None, None))
-    out = torch.empty((B, H, sq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, sq, P), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *(p if p is None else p.data_ptr() for p in planes),
-        B, H, KVH, sq, sk, D, *q.stride()[:3], *k.stride()[:3],
+        B, H, KVH, sq, sk, P, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), int(causal), int(offset),
         int(q.dtype == torch.bfloat16), stream)
     _build.check(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
-    return out
+    return out if P == Dv else out[..., :Dv]

@@ -12,8 +12,9 @@ wrappers to 128 multiples and ``pack_blooms`` to ``bb`` bloom rows and a
 128-multiple of links, as the JAX package's wrappers do, so both
 packages hand their kernels the same shapes (the vertex counts then
 pack their operand to int8, ``butterfly_count.pack_s8``).
-``flash_attention`` pads nothing: its kernel masks the ragged edge
-itself.
+``flash_attention`` pads no sequence: its kernel masks the ragged edge
+itself (a head dim that is not an instance is padded inside its
+wrapper).
 """
 from __future__ import annotations
 
@@ -193,21 +194,25 @@ def edge_wedge_matrix(A: torch.Tensor, bm: int = 128, bn: int = 128,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, offset=None) -> torch.Tensor:
+                    causal: bool = True, offset=None,
+                    scale=None) -> torch.Tensor:
     """Softmax attention through the ``flash_attention`` kernel.
 
     The JAX package's signature: q [B, H, Sq, D], k/v [B, H, Sk, D],
     causal mask aligned bottom-right by the *logical* offset sk − sq
     (``offset=None``).  Beyond it, k/v may hold fewer heads (H a multiple
-    of KVH: GQA/MQA without repeating them) and ``offset`` may be given,
-    as ``models.layers.blockwise_attention`` does (its ``q_offset``: key
-    j visible to query i iff j <= i + offset).  Scores are scaled by
-    D^-1/2.  A row that sees no key gives 0.  Differentiable: the call
+    of KVH: GQA/MQA without repeating them), v may have its own head dim
+    Dv (MLA: D 192, Dv 128; the output is [B, H, Sq, Dv]) and ``offset``
+    may be given, as ``models.layers.blockwise_attention`` does (its
+    ``q_offset``: key j visible to query i iff j <= i + offset).  Scores
+    are scaled by ``scale``, D^-1/2 by default (``flash_attention_pallas``'s
+    default).  A row that sees no key gives 0.  Differentiable: the call
     is ``flash_attention.FlashAttention`` (the kernel forward, a backward
     in torch ops)."""
     sq, D = q.shape[2], q.shape[3]
     sk = k.shape[2]
-    return _flash_attention(q, k, v, causal=causal, scale=D ** -0.5,
+    return _flash_attention(q, k, v, causal=causal,
+                            scale=D ** -0.5 if scale is None else scale,
                             offset=sk - sq if offset is None else offset)
 
 

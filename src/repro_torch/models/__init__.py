@@ -1,6 +1,6 @@
-"""Model zoo, the dense family: the JAX package's ``repro.models`` API
-on PyTorch, training loss included (sharding and the dry-run's specs
-are not ported)."""
+"""Model zoo, the dense and MoE families: the JAX package's
+``repro.models`` API on PyTorch, training loss included for the dense
+family (sharding and the dry-run's specs are not ported)."""
 from .config import ModelConfig, reduced
 from .model import (
     SHAPE_SETS,

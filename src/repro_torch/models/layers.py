@@ -119,12 +119,14 @@ def mlp(x: torch.Tensor, p: dict, kind: str = "swiglu") -> torch.Tensor:
 def blockwise_attention(
     q: torch.Tensor,     # [b, n_heads, sq, d]
     k: torch.Tensor,     # [b, n_kv, sk, d]
-    v: torch.Tensor,     # [b, n_kv, sk, d]
+    v: torch.Tensor,     # [b, n_kv, sk, dv]
     causal: bool = True,
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Online-softmax attention through the ``flash_attention`` kernel,
-    differentiable (``kernels.flash_attention.FlashAttention``).
+    differentiable (``kernels.flash_attention.FlashAttention``): output
+    [b, n_heads, sq, dv] with v's own head dim (MLA's 128 beside its
+    192-dim q and k), scores scaled by d^-1/2.
 
     Query i sits at position ``q_offset + i`` (top-left alignment, as the
     JAX package's blockwise version): with ``causal`` it sees keys

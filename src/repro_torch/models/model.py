@@ -1,7 +1,8 @@
-"""Model assembly for the dense family: parameter specs, init, the
-full-sequence forward, prefill and the decode step.
+"""Model assembly for the dense and MoE families: parameter specs, init,
+the full-sequence forward, prefill and the decode step.
 
-The port of the JAX package's ``models/model.py`` (its dense subset).
+The port of the JAX package's ``models/model.py`` (its decoder-only
+dense and MoE subset: GQA or MLA attention, a dense or MoE FFN).
 Parameters keep the JAX package's tree: a nested dict whose per-layer
 tensors are stacked on a leading [L, ...] axis, so one tree carries
 across between the packages (``convert.params_from_numpy``).
@@ -15,8 +16,9 @@ JAX package's ``_maybe_remat`` does (``torch.utils.checkpoint``).  Every
 product is full f32 (``ref.matmul_f32``, backward included), whatever
 the process's TF32 setting.
 
-Families other than dense raise ``NotImplementedError`` naming the
-ROADMAP item they wait for.
+Families other than dense and moe raise ``NotImplementedError`` naming
+the ROADMAP item they wait for, and ``train_loss`` refuses moe (item
+15b.2b: training through the dispatch).
 """
 from __future__ import annotations
 
@@ -55,35 +57,67 @@ class PSpec(NamedTuple):
     init: str = "normal"  # normal | ones
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; "
-            f"{_NOT_PORTED}")
+            f"{cfg.name}: family {cfg.family!r} is not ported (the port "
+            f"runs {', '.join(PORTED_FAMILIES)}); {_NOT_PORTED}")
 
 
 # =====================================================================
-# Parameter specs (the JAX package's shapes, without sharding axes)
+# Parameter specs (the JAX package's shapes and key order, without
+# sharding axes)
 # =====================================================================
+def _attn_specs(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    if cfg.is_mla:
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return dict(wq=PSpec((L, d, cfg.n_heads * (dn + dr))),
+                    kv_down=PSpec((L, d, cfg.kv_lora + dr)),
+                    k_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dn)),
+                    v_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dv)),
+                    wo=PSpec((L, cfg.n_heads * dv, d)))
+    hd = cfg.resolved_head_dim
+    return dict(wq=PSpec((L, d, cfg.n_heads * hd)),
+                wk=PSpec((L, d, cfg.n_kv_heads * hd)),
+                wv=PSpec((L, d, cfg.n_kv_heads * hd)),
+                wo=PSpec((L, cfg.n_heads * hd, d)))
+
+
+def _ffn_specs(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    if cfg.is_moe:
+        E, fe = cfg.n_experts, cfg.d_ff_expert
+        out: Dict[str, Any] = dict(router=PSpec((L, d, E)),
+                                   we1=PSpec((L, E, d, fe)),
+                                   we3=PSpec((L, E, d, fe)),
+                                   we2=PSpec((L, E, fe, d)))
+        if cfg.n_shared_experts:
+            fs = fe * cfg.n_shared_experts
+            out["shared"] = dict(w1=PSpec((L, d, fs)), w3=PSpec((L, d, fs)),
+                                 w2=PSpec((L, fs, d)))
+        return out
+    ff = cfg.d_ff
+    out = dict(w1=PSpec((L, d, ff)), w2=PSpec((L, ff, d)))
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        out["w3"] = PSpec((L, d, ff))
+    return out
+
+
 def param_specs(cfg: ModelConfig) -> Dict:
-    _require_dense(cfg)
-    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    _require_ported(cfg)
+    L, d = cfg.n_layers, cfg.d_model
     specs: Dict[str, Any] = dict(embed=PSpec((cfg.vocab, d)),
                                  final_norm=PSpec((d,), "ones"))
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((d, cfg.vocab))
-    ffn = dict(w1=PSpec((L, d, ff)), w2=PSpec((L, ff, d)))
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        ffn["w3"] = PSpec((L, d, ff))
-    specs["blocks"] = dict(
-        norm1=PSpec((L, d), "ones"),
-        attn=dict(wq=PSpec((L, d, cfg.n_heads * hd)),
-                  wk=PSpec((L, d, cfg.n_kv_heads * hd)),
-                  wv=PSpec((L, d, cfg.n_kv_heads * hd)),
-                  wo=PSpec((L, cfg.n_heads * hd, d))),
-        norm2=PSpec((L, d), "ones"),
-        ffn=ffn,
-    )
+    specs["blocks"] = dict(norm1=PSpec((L, d), "ones"),
+                           attn=_attn_specs(cfg, L),
+                           norm2=PSpec((L, d), "ones"),
+                           ffn=_ffn_specs(cfg, L))
     return specs
 
 
@@ -188,12 +222,13 @@ class DecoderBlock(_TreeModule):
 
 
 class DenseLM(_TreeModule):
-    """A dense-family decoder LM over a parameter tree in the JAX
-    package's layout (``init_params``, ``convert.params_from_numpy``)."""
+    """A decoder-only LM of the dense or MoE family (GQA or MLA attention)
+    over a parameter tree in the JAX package's layout (``init_params``,
+    ``convert.params_from_numpy``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         self.cfg = cfg
         self._register_tree({k: v for k, v in params.items() if k != "blocks"})
         self.blocks = nn.ModuleList(
@@ -217,10 +252,13 @@ class DenseLM(_TreeModule):
 
     def serve_step(self, cache: Dict, token, length: int):
         """One decode step: token [b] -> (logits [b, vocab], cache), the
-        cache [L, b, kv, S, hd] written at ``length`` in place."""
+        cache (k/v [L, b, kv, S, hd], or MLA's ckv [L, b, S, lora + dr])
+        written at ``length`` in place."""
         x = self.embed_tokens(token[:, None])[:, 0]
         for i, blk in enumerate(self.blocks):
-            x, _ = blk.decode(x, (cache["k"][i], cache["v"][i]), length)
+            layer = (cache["ckv"][i] if self.cfg.is_mla
+                     else (cache["k"][i], cache["v"][i]))
+            x, _ = blk.decode(x, layer, length)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.unembed(x), cache
 
@@ -299,7 +337,7 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     """Full-sequence forward -> logits [b, s, vocab] (or hidden), on the
     tree's own tensors: differentiable in every leaf that requires grad,
     each layer rematerialised as ``cfg`` asks."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     return _forward(params, layer_trees(params["blocks"]), tokens, cfg,
                     positions, return_hidden)
 
@@ -314,7 +352,14 @@ def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
     [b, s] integer tensors, optional ``positions``); logits in f32.  With
     ``cfg.loss_chunk``, unembedding and the loss go one chunk of that
-    many positions at a time, summed, as the JAX package's scan."""
+    many positions at a time, summed, as the JAX package's scan.  The
+    moe family is refused: its backward through the dispatch is not yet
+    held to JAX's."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training the moe family is not ported; ROADMAP "
+            "queue 1 item 15b.2b (train_loss through the MoE dispatch, "
+            "held to jax.grad)")
     labels = batch["labels"]
     x = forward(params, batch["tokens"], cfg,
                 positions=batch.get("positions"), return_hidden=True)
@@ -344,8 +389,12 @@ def serve_step(params, cache: Dict, token, length: int, cfg: ModelConfig):
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int,
                 dtype=torch.bfloat16) -> Dict:
-    """{name: (shape, dtype)} of the decode cache."""
-    _require_dense(cfg)
+    """{name: (shape, dtype)} of the decode cache: MLA's compressed rows
+    (``ckv``), or per-head keys and values."""
+    _require_ported(cfg)
+    if cfg.is_mla:
+        return dict(ckv=((cfg.n_layers, batch, seq,
+                          cfg.kv_lora + cfg.qk_rope_dim), dtype))
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.resolved_head_dim)
     return dict(k=(shape, dtype), v=(shape, dtype))
 

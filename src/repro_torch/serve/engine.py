@@ -4,8 +4,9 @@ The port of the JAX package's ``serve/engine.py``, with its slot, EOS
 and recycle semantics.  A fixed pool of batch *slots* shares one KV
 cache; requests join free slots (prefill by teacher forcing on the
 decode path), finished sequences retire and free their slot.  Each
-iteration is one ``DenseLM.serve_step`` over every slot; the cache is
-written in place.
+iteration is one ``DenseLM.serve_step`` over every slot; the cache
+(per-head keys and values, or MLA's compressed ``ckv`` rows) is written
+in place.
 """
 from __future__ import annotations
 

@@ -618,14 +618,75 @@ def test_flash_attention_refusals(card):
         ops.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="expected cuda"):
         ops.flash_attention(q, q.cpu(), q)
+    # a head dim with no instance is padded (test_flash_attention_pads_
+    # head_dims_without_an_instance); one above the largest raises
+    big = torch.zeros((1, 2, 64, 320), device=card)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+        ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="multiple of KVH"):
         ops.flash_attention(q, q[:, :1].expand(1, 3, 64, 64).contiguous(), q)
     # a grad-requiring input is no longer refused: it takes the
     # autograd.Function (the kernel forward, the torch-ops backward)
     out = ops.flash_attention(q.clone().requires_grad_(), q, q)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-3),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("qs,dv,causal", [
+    ((1, 8, 256, 192), 128, True),     # DeepSeek-V2's MLA: q/k 192, v 128
+    ((2, 4, 200, 192), 128, True),     # MLA, ragged tail
+    ((1, 4, 300, 192), 128, False),    # MLA, non-causal
+    ((1, 4, 130, 48), 48, True),       # a head dim with no instance
+    ((1, 4, 96, 96), 64, True),        # v narrower, padded to 128
+])
+def test_flash_attention_pads_head_dims_without_an_instance(card, dtype, atol,
+                                                            qs, dv, causal):
+    """(D, Dv) that no instance takes: the wrapper zero-pads q, k and v
+    to the next instance, launches it once and cuts the output to Dv;
+    within the JAX package's tolerance of the plain version, every row
+    within ``F32_ROW_RTOL`` / ``BF16_ROW_RTOL``.  v is a transposed view,
+    as the model's is."""
+    g = torch.Generator(device=card).manual_seed(qs[2] + dv)
+    q, k = (torch.randn(qs, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    vb = torch.randn((qs[0], qs[2], qs[1], dv), generator=g,
+                     device=card).to(dtype)
+    v = vb.transpose(1, 2)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v.contiguous(), causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape == (*qs[:3], dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert _worst_row_rel(got, want) <= (
+        F32_ROW_RTOL if dtype == torch.float32 else BF16_ROW_RTOL)
+
+
+def test_mla_prefill_goes_through_the_kernel(card):
+    """A reduced DeepSeek-V2 prefill on the card (MLA's q/k of 48 dims, v
+    of 32, padded to the D 64 instance): one launch per layer, and with
+    nothing dropped (capacity factor E / k) its logits equal the
+    teacher-forced decode path's, naive and absorbed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DenseLM, init_cache, init_params, reduced
+
+    cfg = reduced(get_config("deepseek_v2_236b"), n_layers=2)
+    params = init_params(cfg, torch.Generator(card).manual_seed(0), card)
+    model = DenseLM(cfg, params)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=card)
+    ops.reset_launch_counts()
+    last = model.prefill(tokens)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    for absorb in (False, True):
+        m = DenseLM(dataclasses.replace(cfg, mla_absorb=absorb), params)
+        cache = init_cache(cfg, 2, 40, card)
+        for i in range(40):
+            logits, cache = m.serve_step(cache, tokens[:, i], i)
+        torch.testing.assert_close(last, logits, rtol=0, atol=1e-4)
 
 
 def test_lm_prefill_goes_through_the_kernel(card):
