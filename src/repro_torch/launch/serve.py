@@ -7,8 +7,9 @@ repro.launch.serve`` (``--arch --reduced --batch --prompt-len --gen
 versions of the kernels).  The weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed`` (not the JAX package's
 numbers); the prompts come from ``np.random.default_rng(--seed)`` as
-there.  Dense- and MoE-family architectures (MoE with MLA:
-``deepseek_v2_236b``; with GQA: ``dbrx_132b``)::
+there.  Dense-, MoE-, SSM- and hybrid-family architectures (MoE with
+MLA: ``deepseek_v2_236b``; with GQA: ``dbrx_132b``; SSM:
+``xlstm_1_3b``; hybrid: ``zamba2_7b``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
         --batch 4 --prompt-len 16 --gen 16
@@ -16,6 +17,8 @@ there.  Dense- and MoE-family architectures (MoE with MLA:
         --arch deepseek_v2_236b --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
+        --reduced
 """
 from __future__ import annotations
 

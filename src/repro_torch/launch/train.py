@@ -1,8 +1,9 @@
-"""End-to-end training CLI of the PyTorch port (dense family).
+"""End-to-end training CLI of the PyTorch port.
 
 The same flags, output lines and exit codes as the JAX package's
 ``python -m repro.launch.train``, plus ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions)::
+``cpu`` runs the kernels' plain versions), for every ported family
+(dense, MoE, SSM, hybrid)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \

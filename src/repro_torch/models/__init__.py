@@ -1,11 +1,11 @@
-"""Model zoo, the dense and MoE families: the JAX package's
-``repro.models`` API on PyTorch, training loss included for the dense
-family (sharding and the dry-run's specs are not ported)."""
+"""Model zoo, the dense, MoE, SSM and hybrid families: the JAX
+package's ``repro.models`` API on PyTorch, training loss included
+(sharding and the dry-run's specs are not ported)."""
 from .config import ModelConfig, reduced
 from .model import (
     SHAPE_SETS,
-    DecoderBlock,
     DenseLM,
+    LayerTree,
     cache_specs,
     forward,
     init_cache,
@@ -20,8 +20,8 @@ __all__ = [
     "ModelConfig",
     "reduced",
     "SHAPE_SETS",
-    "DecoderBlock",
     "DenseLM",
+    "LayerTree",
     "cache_specs",
     "forward",
     "init_cache",

@@ -4,8 +4,8 @@ A copy of the JAX package's ``models/config.py`` (same fields, defaults
 and ``reduced``), with the parameter counts taken from the port's own
 specs.  One frozen dataclass; every family (dense / moe / ssm / hybrid /
 audio / vlm) is a point in this space.  ``repro_torch/configs/<arch>.py``
-holds the exact published values.  The port runs the dense and MoE
-families.
+holds the exact published values.  The port runs the dense, MoE, SSM
+and hybrid families.
 """
 from __future__ import annotations
 
@@ -110,7 +110,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Total parameter count, from the port's parameter specs (the
-        dense and MoE families; others raise NotImplementedError)."""
+        audio and VLM families raise NotImplementedError)."""
         from .model import param_specs  # lazy, avoids a cycle
         return sum(_numel(s.shape) for _, s in _leaves(param_specs(self)))
 

@@ -1,7 +1,8 @@
 """Weights that both packages load.
 
 ``numpy_params`` draws a parameter tree in the JAX package's layout and
-distribution (N(0, 1) · fan_in^-1/2, ones for norms) from
+distribution (N(0, 1) · fan_in^-1/2, ones for norms and Mamba2's ``D``,
+zeros for its ``A_log`` and ``dt_bias``) from
 ``np.random.default_rng(seed)``; the JAX package takes it as it is
 (``jax.numpy.asarray`` of every leaf) and ``params_from_numpy`` carries
 it to torch, so the two packages run the same weights.  Any tree of
@@ -22,12 +23,15 @@ __all__ = ["numpy_params", "params_from_numpy"]
 
 def numpy_params(cfg: ModelConfig, seed: int = 0) -> Dict:
     """Seeded float32 weights: one ``default_rng(seed)`` stream drawn
-    leaf by leaf in ``param_specs`` order."""
+    leaf by leaf in ``param_specs`` order; a constant leaf (ones, zeros)
+    draws nothing from it."""
     rng = np.random.default_rng(seed)
     out: Dict = {}
     for path, spec in flat_items(param_specs(cfg)):
         if spec.init == "ones":
             v = np.ones(spec.shape, np.float32)
+        elif spec.init in ("zeros", "a_log"):
+            v = np.zeros(spec.shape, np.float32)
         else:
             v = rng.standard_normal(spec.shape, dtype=np.float32)
             v *= np.float32(fan_in(spec.shape) ** -0.5)

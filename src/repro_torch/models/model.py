@@ -1,27 +1,31 @@
-"""Model assembly for the dense and MoE families: parameter specs, init,
-the full-sequence forward, prefill and the decode step.
+"""Model assembly for the dense, MoE, SSM and hybrid families: parameter
+specs, init, the full-sequence forward, the training loss, prefill and
+the decode step.
 
 The port of the JAX package's ``models/model.py`` (its decoder-only
-dense and MoE subset: GQA or MLA attention, a dense or MoE FFN).
-Parameters keep the JAX package's tree: a nested dict whose per-layer
-tensors are stacked on a leading [L, ...] axis, so one tree carries
-across between the packages (``convert.params_from_numpy``).
-``DenseLM`` and ``DecoderBlock`` are ``nn.Module`` views of that tree
-for serving (no copies: a block's parameters are the slices of layer i,
-registered without grad); ``prefill`` and ``serve_step`` take the tree
-as the JAX functions do and run through them.  ``forward`` and
-``train_loss`` are functional over the tree's own tensors, so gradients
-reach leaves that require them, with each layer rematerialised as the
-JAX package's ``_maybe_remat`` does (``torch.utils.checkpoint``).  Every
-product is full f32 (``ref.matmul_f32``, backward included), whatever
-the process's TF32 setting.
+families: GQA or MLA attention with a dense or MoE FFN; xLSTM's groups
+of mLSTM layers and one sLSTM; Zamba2's Mamba2 layers with one shared
+attention block applied every ``attn_every`` layers).  Parameters keep
+the JAX package's tree: a nested dict whose per-layer tensors are
+stacked on a leading [L, ...] axis (xLSTM: [G, M, ...] and [G, ...]),
+so one tree carries across between the packages
+(``convert.params_from_numpy``).  ``DenseLM`` and its layer modules are
+``nn.Module`` views of that tree for serving (no copies: a layer's
+parameters are its slices, registered without grad); ``prefill`` and
+``serve_step`` take the tree as the JAX functions do and run through
+them.  ``forward`` and ``train_loss`` are functional over the tree's own
+tensors, so gradients reach leaves that require them, with each layer
+rematerialised as the JAX package's ``_maybe_remat`` does
+(``torch.utils.checkpoint``).  Every product is full f32
+(``ref.matmul_f32``, backward included), whatever the process's TF32
+setting.
 
-Families other than dense and moe raise ``NotImplementedError`` naming
-the ROADMAP item they wait for, and ``train_loss`` refuses moe (item
-15b.2b: training through the dispatch).
+The audio and VLM families raise ``NotImplementedError`` naming the
+ROADMAP item they wait for (15b.4).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -30,8 +34,10 @@ from torch import nn
 from torch.utils import checkpoint
 
 from .config import ModelConfig
-from .layers import mrope_positions, rms_norm
-from .transformer import _NOT_PORTED, decoder_block, decoder_block_decode
+from . import ssm as S
+from .layers import mlp, mrope_positions, rms_norm
+from .transformer import (_NOT_PORTED, attention, attention_decode,
+                          decoder_block, decoder_block_decode)
 from ..kernels.ref import matmul_f32
 
 __all__ = [
@@ -39,7 +45,7 @@ __all__ = [
     "param_specs",
     "init_params",
     "flat_items",
-    "DecoderBlock",
+    "LayerTree",
     "DenseLM",
     "forward",
     "train_loss",
@@ -54,10 +60,10 @@ __all__ = [
 
 class PSpec(NamedTuple):
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | ones
+    init: str = "normal"  # normal | ones | zeros | a_log
 
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -107,6 +113,41 @@ def _ffn_specs(cfg: ModelConfig, L: int) -> Dict:
     return out
 
 
+def _mamba_specs(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    nh = d_inner // 64                      # mamba2 head dim 64
+    d_in = 2 * d_inner + 2 * cfg.ssm_state + nh
+    return dict(norm=PSpec((L, d), "ones"),
+                in_proj=PSpec((L, d, d_in)),
+                conv_w=PSpec((L, cfg.ssm_conv, d_inner)),
+                A_log=PSpec((L, nh), "a_log"),
+                dt_bias=PSpec((L, nh), "zeros"),
+                D=PSpec((L, nh), "ones"),
+                out_proj=PSpec((L, d_inner, d)))
+
+
+def _xlstm_specs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    G = cfg.n_layers // cfg.slstm_every
+    M = cfg.slstm_every - 1
+    di = cfg.lstm_proj_factor * d
+    nh = cfg.n_heads
+    dh2 = d // nh
+    return dict(
+        mlstm=dict(norm=PSpec((G, M, d), "ones"),
+                   up_proj=PSpec((G, M, d, 2 * di)),
+                   wq=PSpec((G, M, di, di)),
+                   wk=PSpec((G, M, di, di)),
+                   wv=PSpec((G, M, di, di)),
+                   wg=PSpec((G, M, di, 2 * nh)),
+                   down_proj=PSpec((G, M, di, d))),
+        slstm=dict(norm=PSpec((G, d), "ones"),
+                   W=PSpec((G, d, 4 * nh * dh2)),
+                   R=PSpec((G, nh, dh2, 4 * dh2)),
+                   out=PSpec((G, nh * dh2, d))))
+
+
 def param_specs(cfg: ModelConfig) -> Dict:
     _require_ported(cfg)
     L, d = cfg.n_layers, cfg.d_model
@@ -114,10 +155,23 @@ def param_specs(cfg: ModelConfig) -> Dict:
                                  final_norm=PSpec((d,), "ones"))
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((d, cfg.vocab))
-    specs["blocks"] = dict(norm1=PSpec((L, d), "ones"),
-                           attn=_attn_specs(cfg, L),
-                           norm2=PSpec((L, d), "ones"),
-                           ffn=_ffn_specs(cfg, L))
+    if cfg.family in ("dense", "moe"):
+        specs["blocks"] = dict(norm1=PSpec((L, d), "ones"),
+                               attn=_attn_specs(cfg, L),
+                               norm2=PSpec((L, d), "ones"),
+                               ffn=_ffn_specs(cfg, L))
+    elif cfg.family == "ssm":
+        specs.update(_xlstm_specs(cfg))
+    else:  # hybrid: the shared block is dense GQA whatever cfg says
+        specs["blocks"] = _mamba_specs(cfg, L)
+        shared = dataclasses.replace(cfg, kv_lora=0, n_experts=0)
+
+        def one(tree):
+            return {k: PSpec(v.shape[1:], v.init) for k, v in tree.items()}
+        specs["shared_attn"] = dict(norm1=PSpec((d,), "ones"),
+                                    attn=one(_attn_specs(shared, 1)),
+                                    norm2=PSpec((d,), "ones"),
+                                    ffn=one(_ffn_specs(shared, 1)))
     return specs
 
 
@@ -159,6 +213,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     for path, spec in flat_items(param_specs(cfg)):
         if spec.init == "ones":
             v = torch.ones(spec.shape, dtype=dtype, device=dev)
+        elif spec.init in ("zeros", "a_log"):  # a_log 0: A = -1
+            v = torch.zeros(spec.shape, dtype=dtype, device=dev)
         else:
             v = torch.randn(spec.shape, generator=generator,
                             dtype=torch.float32, device=dev)
@@ -179,6 +235,32 @@ def layer_trees(blocks: dict) -> list:
             _put(layer, path, ts[i])
         out.append(layer)
     return out
+
+
+# the top-level keys whose leaves are stacked per layer (xLSTM: per group)
+_LAYER_KEYS = ("blocks", "mlstm", "slstm")
+
+
+def _stacked(params, cfg: ModelConfig) -> dict:
+    """The part of the tree stacked on a leading layer axis (xLSTM: its
+    group axis, over the mLSTM and sLSTM subtrees)."""
+    if cfg.family == "ssm":
+        return {k: params[k] for k in ("mlstm", "slstm")}
+    return params["blocks"]
+
+
+def _per_layer(trees: list, cfg: ModelConfig) -> list:
+    """``layer_trees`` of ``_stacked`` as the backbone runs them: one dict
+    a layer, or for xLSTM one a group with its M mLSTM layers' dicts
+    under ``mlstm`` and its sLSTM layer's under ``slstm``."""
+    if cfg.family == "ssm":
+        return [dict(mlstm=layer_trees(g["mlstm"]), slstm=g["slstm"])
+                for g in trees]
+    return trees
+
+
+def _layers(params, cfg: ModelConfig) -> list:
+    return _per_layer(layer_trees(_stacked(params, cfg)), cfg)
 
 
 # =====================================================================
@@ -206,33 +288,36 @@ class _TreeModule(nn.Module):
         return out
 
 
-class DecoderBlock(_TreeModule):
-    """One pre-norm decoder layer over its parameter dict."""
+class LayerTree(_TreeModule):
+    """One layer's parameters: a decoder layer's (dense, moe), a Mamba2
+    layer's (hybrid), or one xLSTM group's (ssm: its mLSTM layers
+    stacked [M, ...], its sLSTM layer); the family's functions in this
+    module run them."""
 
-    def __init__(self, cfg: ModelConfig, p: dict):
+    def __init__(self, p: dict):
         super().__init__()
-        self.cfg = cfg
         self._register_tree(p)
-
-    def forward(self, x, positions, causal: bool = True):
-        return decoder_block(x, self.tree(), self.cfg, positions, causal)
-
-    def decode(self, x, cache, length: int):
-        return decoder_block_decode(x, self.tree(), self.cfg, cache, length)
 
 
 class DenseLM(_TreeModule):
-    """A decoder-only LM of the dense or MoE family (GQA or MLA attention)
-    over a parameter tree in the JAX package's layout (``init_params``,
-    ``convert.params_from_numpy``)."""
+    """A decoder-only LM of any ported family over a parameter tree in
+    the JAX package's layout (``init_params``,
+    ``convert.params_from_numpy``), one ``LayerTree`` a layer (xLSTM: a
+    group); Zamba2's shared attention block sits in the model's own
+    tree."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         _require_ported(cfg)
         self.cfg = cfg
-        self._register_tree({k: v for k, v in params.items() if k != "blocks"})
+        self._register_tree({k: v for k, v in params.items()
+                             if k not in _LAYER_KEYS})
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, p) for p in layer_trees(params["blocks"]))
+            LayerTree(p) for p in layer_trees(_stacked(params, cfg)))
+
+    def layers(self) -> list:
+        """The per-layer trees (``_layers``'s structure) of the blocks."""
+        return _per_layer([blk.tree() for blk in self.blocks], self.cfg)
 
     def embed_tokens(self, tokens):
         return _embed(self.tree(), tokens, self.cfg)
@@ -242,8 +327,8 @@ class DenseLM(_TreeModule):
 
     def forward(self, tokens, positions=None, return_hidden: bool = False):
         """Full-sequence forward -> logits [b, s, vocab] (or hidden)."""
-        return _forward(self.tree(), [blk.tree() for blk in self.blocks],
-                        tokens, self.cfg, positions, return_hidden)
+        return _forward(self.tree(), self.layers(), tokens, self.cfg,
+                        positions, return_hidden)
 
     def prefill(self, tokens, positions=None):
         """Last-position logits [b, vocab] of the full forward (only the
@@ -252,13 +337,11 @@ class DenseLM(_TreeModule):
 
     def serve_step(self, cache: Dict, token, length: int):
         """One decode step: token [b] -> (logits [b, vocab], cache), the
-        cache (k/v [L, b, kv, S, hd], or MLA's ckv [L, b, S, lora + dr])
-        written at ``length`` in place."""
+        cache (``cache_specs``) written in place: keys and values (or
+        MLA's ckv rows) at ``length``, recurrent states overwritten."""
         x = self.embed_tokens(token[:, None])[:, 0]
-        for i, blk in enumerate(self.blocks):
-            layer = (cache["ckv"][i] if self.cfg.is_mla
-                     else (cache["k"][i], cache["v"][i]))
-            x, _ = blk.decode(x, layer, length)
+        x = _DECODE[self.cfg.family](self.tree(), self.layers(), cache, x,
+                                     length, self.cfg)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.unembed(x), cache
 
@@ -315,19 +398,60 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return remat
 
 
+def _mlstm_layer(h, p, cfg: ModelConfig):
+    return h + S.mlstm_mix(rms_norm(h, p["norm"], cfg.norm_eps), p, cfg)
+
+
+def _mamba_layer(h, p, cfg: ModelConfig):
+    return h + S.mamba2_mix(rms_norm(h, p["norm"], cfg.norm_eps), p, cfg)
+
+
+def _shared_block(h, shared, cfg: ModelConfig, positions):
+    """Zamba2's shared attention block (pre-norm attention, then MLP)."""
+    a = rms_norm(h, shared["norm1"], cfg.norm_eps)
+    h = h + attention(a, shared["attn"], cfg, positions, causal=True)
+    f = rms_norm(h, shared["norm2"], cfg.norm_eps)
+    return h + mlp(f, shared["ffn"], cfg.mlp_type)
+
+
+def _backbone(params, layers, x, cfg: ModelConfig, positions):
+    """The layers of ``cfg``'s family over x [b, s, d], each
+    rematerialised as the JAX package's backbone does: a decoder layer;
+    an mLSTM layer (an xLSTM group's sLSTM layer is not); a Mamba2 layer
+    with, after every ``attn_every``-th, the shared block (JAX's
+    ``lax.cond`` on a static flag)."""
+    if cfg.family in ("dense", "moe"):
+        body = _maybe_remat(
+            lambda h, p: decoder_block(h, p, cfg, positions), cfg)
+        for p in layers:
+            x = body(x, p)
+    elif cfg.family == "ssm":
+        body = _maybe_remat(lambda h, p: _mlstm_layer(h, p, cfg), cfg)
+        for gp in layers:
+            for p in gp["mlstm"]:
+                x = body(x, p)
+            sp = gp["slstm"]
+            x = x + S.slstm_mix(rms_norm(x, sp["norm"], cfg.norm_eps), sp,
+                                cfg)
+    else:
+        plain = _maybe_remat(lambda h, p: _mamba_layer(h, p, cfg), cfg)
+        with_attn = _maybe_remat(lambda h, p, shared: _shared_block(
+            _mamba_layer(h, p, cfg), shared, cfg, positions), cfg)
+        for i, p in enumerate(layers):
+            x = (with_attn(x, p, params["shared_attn"])
+                 if (i + 1) % cfg.attn_every == 0 else plain(x, p))
+    return x
+
+
 def _forward(params, layers, tokens, cfg: ModelConfig, positions,
              return_hidden: bool) -> torch.Tensor:
     """The full-sequence forward of ``forward`` and ``DenseLM``: the
-    embedding, final norm and head from ``params``, the decoder layers
-    from the per-layer trees ``layers``, each rematerialised as ``cfg``
-    asks."""
+    embedding, final norm, head (and Zamba2's shared block) from
+    ``params``, the layers from the per-layer trees ``layers``."""
     if positions is None:
         positions = _positions(cfg, *tokens.shape, tokens.device)
-    body = _maybe_remat(
-        lambda h, p: decoder_block(h, p, cfg, positions), cfg)
-    x = _embed(params, tokens, cfg)
-    for p in layers:
-        x = body(x, p)
+    x = _backbone(params, layers, _embed(params, tokens, cfg), cfg,
+                  positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x if return_hidden else _unembed(params, x, cfg)
 
@@ -338,8 +462,8 @@ def forward(params, tokens, cfg: ModelConfig, positions=None,
     tree's own tensors: differentiable in every leaf that requires grad,
     each layer rematerialised as ``cfg`` asks."""
     _require_ported(cfg)
-    return _forward(params, layer_trees(params["blocks"]), tokens, cfg,
-                    positions, return_hidden)
+    return _forward(params, _layers(params, cfg), tokens, cfg, positions,
+                    return_hidden)
 
 
 def _nll(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
@@ -353,13 +477,9 @@ def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     [b, s] integer tensors, optional ``positions``); logits in f32.  With
     ``cfg.loss_chunk``, unembedding and the loss go one chunk of that
     many positions at a time, summed, as the JAX package's scan.  The
-    moe family is refused: its backward through the dispatch is not yet
-    held to JAX's."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training the moe family is not ported; ROADMAP "
-            "queue 1 item 15b.2b (train_loss through the MoE dispatch, "
-            "held to jax.grad)")
+    MoE family differentiates through its dispatch (gathers, the
+    ``index_add_`` into the expert buffer, the sorted gates): a dropped
+    (token, expert) pair gets no gradient, as in JAX."""
     labels = batch["labels"]
     x = forward(params, batch["tokens"], cfg,
                 positions=batch.get("positions"), return_hidden=True)
@@ -387,15 +507,87 @@ def serve_step(params, cache: Dict, token, length: int, cfg: ModelConfig):
     return DenseLM(cfg, params).serve_step(cache, token, length)
 
 
+# ------------------------------------------------------------- decode
+def _write(views, values) -> None:
+    """New recurrent states into their cache slots, in place."""
+    for t, v in zip(views, values):
+        t.copy_(v)
+
+
+def _decode_decoder(params, layers, cache, x, length, cfg: ModelConfig):
+    for i, p in enumerate(layers):
+        layer = (cache["ckv"][i] if cfg.is_mla
+                 else (cache["k"][i], cache["v"][i]))
+        x, _ = decoder_block_decode(x, p, cfg, layer, length)
+    return x
+
+
+def _decode_xlstm(params, layers, cache, x, length, cfg: ModelConfig):
+    eps = cfg.norm_eps
+    for g, gp in enumerate(layers):
+        for m, p in enumerate(gp["mlstm"]):
+            st = (cache["mlstm_S"][g, m], cache["mlstm_n"][g, m])
+            y, new = S.mlstm_step(rms_norm(x, p["norm"], eps), st, p, cfg)
+            _write(st, new)
+            x = x + y
+        sp = gp["slstm"]
+        st = tuple(cache[f"slstm_{k}"][g] for k in "hcn")
+        y, new = S.slstm_step(rms_norm(x, sp["norm"], eps), st, sp, cfg)
+        _write(st, new)
+        x = x + y
+    return x
+
+
+def _decode_zamba(params, layers, cache, x, length, cfg: ModelConfig):
+    shared, eps = params["shared_attn"], cfg.norm_eps
+    for i, p in enumerate(layers):
+        st = (cache["conv"][i], cache["S"][i])
+        y, new = S.mamba2_step(rms_norm(x, p["norm"], eps), st, p, cfg)
+        _write(st, new)
+        x = x + y
+        if (i + 1) % cfg.attn_every == 0:
+            a = (i + 1) // cfg.attn_every - 1
+            h = rms_norm(x, shared["norm1"], eps)
+            h, _ = attention_decode(h, shared["attn"], cfg,
+                                    (cache["attn_k"][a], cache["attn_v"][a]),
+                                    length)
+            x = x + h
+            f = rms_norm(x, shared["norm2"], eps)
+            x = x + mlp(f[:, None], shared["ffn"], cfg.mlp_type)[:, 0]
+    return x
+
+
+_DECODE = dict(dense=_decode_decoder, moe=_decode_decoder,
+               ssm=_decode_xlstm, hybrid=_decode_zamba)
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq: int,
                 dtype=torch.bfloat16) -> Dict:
-    """{name: (shape, dtype)} of the decode cache: MLA's compressed rows
-    (``ckv``), or per-head keys and values."""
+    """{name: (shape, dtype)} of the decode cache, the JAX package's:
+    MLA's compressed rows (``ckv``) or per-head keys and values; xLSTM's
+    recurrent states (f32); Zamba2's conv windows (``dtype``), SSM states
+    (f32) and the shared block's keys and values, one set an
+    application."""
     _require_ported(cfg)
+    L, hd, f32 = cfg.n_layers, cfg.resolved_head_dim, torch.float32
+    if cfg.family == "ssm":
+        G, M = L // cfg.slstm_every, cfg.slstm_every - 1
+        nh = cfg.n_heads
+        dh = cfg.lstm_proj_factor * cfg.d_model // nh
+        hcn = ((G, batch, nh, cfg.d_model // nh), f32)
+        return dict(mlstm_S=((G, M, batch, nh, dh, dh), f32),
+                    mlstm_n=((G, M, batch, nh, dh), f32),
+                    slstm_h=hcn, slstm_c=hcn, slstm_n=hcn)
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        kv = ((L // cfg.attn_every, batch, cfg.n_kv_heads, seq, hd), dtype)
+        return dict(conv=((L, batch, cfg.ssm_conv, d_inner), dtype),
+                    S=((L, batch, d_inner // 64, cfg.ssm_state, 64), f32),
+                    attn_k=kv, attn_v=kv)
     if cfg.is_mla:
-        return dict(ckv=((cfg.n_layers, batch, seq,
-                          cfg.kv_lora + cfg.qk_rope_dim), dtype))
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.resolved_head_dim)
+        return dict(ckv=((L, batch, seq, cfg.kv_lora + cfg.qk_rope_dim),
+                         dtype))
+    shape = (L, batch, cfg.n_kv_heads, seq, hd)
     return dict(k=(shape, dtype), v=(shape, dtype))
 
 

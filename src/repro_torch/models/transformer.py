@@ -33,8 +33,7 @@ __all__ = [
     "decoder_block_decode",
 ]
 
-_NOT_PORTED = ("ROADMAP queue 1 item 15b.3 (the SSM and hybrid families) "
-               "and 15b.4 (audio and VLM)")
+_NOT_PORTED = "ROADMAP queue 1 item 15b.4 (the audio and VLM families)"
 
 
 def _heads(x, w, n, hd):

@@ -5,8 +5,9 @@ and recycle semantics.  A fixed pool of batch *slots* shares one KV
 cache; requests join free slots (prefill by teacher forcing on the
 decode path), finished sequences retire and free their slot.  Each
 iteration is one ``DenseLM.serve_step`` over every slot; the cache
-(per-head keys and values, or MLA's compressed ``ckv`` rows) is written
-in place.
+(per-head keys and values, MLA's compressed ``ckv`` rows, or the SSM
+and hybrid families' recurrent states) is written in place, and zeroed
+wholesale at a quiescent point, recurrent states included.
 """
 from __future__ import annotations
 

@@ -639,6 +639,7 @@ def test_flash_attention_refusals(card):
     ((1, 4, 300, 192), 128, False),    # MLA, non-causal
     ((1, 4, 130, 48), 48, True),       # a head dim with no instance
     ((1, 4, 96, 96), 64, True),        # v narrower, padded to 128
+    ((1, 32, 256, 112), 112, True),    # Zamba2's shared block: D 112
 ])
 def test_flash_attention_pads_head_dims_without_an_instance(card, dtype, atol,
                                                             qs, dv, causal):
@@ -859,6 +860,72 @@ def test_flash_attention_grads_on_the_card(card, shape, kv, causal, offset):
             assert ops.launch_counts()["flash_attention"] == 1
     for a, b in zip(*grads):
         assert ((a - b).norm() / b.norm()).item() <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("d,dv,causal", [(192, 128, True), (112, 112, True),
+                                         (192, 128, False)])
+def test_flash_attention_grads_at_padded_head_dims(card, d, dv, causal):
+    """``FlashAttention`` at head dims padded to an instance (MLA's
+    192 / 128 to 256, Zamba2's 112 to 128): dq, dk and dv through the
+    kernel forward (one launch) and the backward at Dv against torch
+    autograd through the plain version, within ``GRAD_RTOL``."""
+    gen = torch.Generator(card).manual_seed(d + dv)
+    q, k = (torch.randn((1, 8, 192, d), generator=gen, device=card)
+            for _ in range(2))
+    v = torch.randn((1, 8, 192, dv), generator=gen, device=card)
+    w = torch.randn((1, 8, 192, dv), generator=gen, device=card)
+    grads = []
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_launch_counts()
+        (fn(*leaves, causal=causal) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+        if len(grads) == 1:
+            assert ops.launch_counts()["flash_attention"] == 1
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        assert ((a - b).norm() / b.norm()).item() <= GRAD_RTOL
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "dbrx_132b",
+                                  "xlstm_1_3b", "zamba2_7b"])
+def test_reduced_grads_on_the_card_equal_the_cpu(card, arch):
+    """``train_loss`` and every gradient leaf of a reduced MoE, SSM or
+    hybrid model on the card (attention through the kernel: MLA padded
+    to D 64, Zamba2's shared block at D 32) against the same on the CPU
+    (the plain version), ``convert.numpy_params`` weights: the loss to
+    1e-5 relative, each leaf within ``GRAD_RTOL`` (the SSM and hybrid
+    families within ``tests/test_torch_ssm.py``'s 2e-4: their chunked
+    recurrence amplifies f32 rounding, and the two devices sum in other
+    orders); ``flash_attention`` launches twice an attention layer
+    (forward and recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced, train_loss
+    from repro_torch.models.convert import numpy_params, params_from_numpy
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config(arch))
+    tree = numpy_params(cfg, seed=2)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+             for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", card):
+        leaves = tree_map(lambda t: t.requires_grad_(),
+                          params_from_numpy(tree, cfg, device=dev))
+        ops.reset_launch_counts()
+        loss = train_loss(leaves, {k: v.to(dev) for k, v in batch.items()},
+                          cfg)
+        out[str(dev)] = (loss.item(), torch.autograd.grad(
+            loss, tree_leaves(leaves)))
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+    assert ops.launch_counts()["flash_attention"] == 2 * attn
+    (l0, g0), (l1, g1) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    rtol = 2e-4 if cfg.is_recurrent else GRAD_RTOL
+    for a, b in zip(g1, g0):
+        assert ((a.cpu() - b).norm() / b.norm()).item() <= rtol
 
 
 def test_reduced_train_step_on_the_card(card):

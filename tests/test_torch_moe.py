@@ -11,7 +11,8 @@ through both packages on the CPU:
   naive and the absorbed decode) layer by layer;
 * ``forward``, ``prefill`` and a teacher-forced ``serve_step`` of reduced
   DBRX and DeepSeek-V2, and ``ContinuousBatcher``'s tokens;
-* the full configs' parameter counts, ``train_loss``'s refusal;
+* the full configs' parameter counts (training:
+  ``tests/test_torch_moe_train.py``);
 * ``ops.flash_attention`` with v's head dim below q's (MLA) and an
   explicit scale, and the wrapper's zero-padding to an instance, modelled
   on the CPU through the plain version;
@@ -43,7 +44,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import (DenseLM, forward, init_cache, moe, prefill,
-                                reduced, serve_step, train_loss, transformer)
+                                reduced, serve_step, transformer)
 from repro_torch.models.convert import numpy_params, params_from_numpy
 from repro_torch.serve import ContinuousBatcher, Request
 
@@ -291,13 +292,6 @@ def test_param_counts_match_jax(arch):
     assert abs(cfg.param_count() / named - 1) < 0.05
 
 
-def test_train_loss_refuses_moe():
-    cfg, tp, _, _ = _models("dbrx_132b", n_layers=1)
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="15b.2b"):
-        train_loss(tp, dict(tokens=toks, labels=toks), cfg)
-
-
 # ------------------------------------------------------------ attention
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_takes_mla_head_dims(causal):
@@ -392,7 +386,11 @@ def test_chip_smoke_moe_phase_rehearsed_on_cpu(monkeypatch):
                   seq=64),
         affinity_P=4,
         cli=[*moe_spec["cli"], "--batch", "2", "--prompt-len", "4", "--gen",
-             "4"])
+             "4"],
+        train=dict(moe_spec["train"], cfgs=[cfg("dbrx_132b", 1),
+                                            cfg("deepseek_v2_236b", 1)],
+                   seq=64, cli_flags=["--steps", "8", "--batch", "2",
+                                      "--seq", "32", "--log-every", "1"]))
     launches = {}
     row, info = smoke.phase_moe(golden, "cpu", launches, spec=spec,
                                 golden_cfg=gcfg)
@@ -407,6 +405,15 @@ def test_chip_smoke_moe_phase_rehearsed_on_cpu(monkeypatch):
     assert info["deepseek_bf16"]["rel"] < smoke.BF16_LOGIT_RTOL
     assert max(info["golden"].values()) < ATOL * 10
     assert info["golden_dropped"] > 0
+    train = info["train"]
+    assert set(train) == {"dbrx-132b", "deepseek-v2-236b", "cli"}
+    for name in ("dbrx-132b", "deepseek-v2-236b"):
+        assert train[name]["plain_worst_rel_l2"] < 1e-5
+        assert train[name]["remat_worst_rel_l2"] < 1e-5
+    assert train["deepseek-v2-236b"]["moe_layer"]["dropped"] > 0
+    layer = train["deepseek-v2-236b"]["moe_layer"]
+    assert max(layer["rel_l2"].values()) < 1e-5
+    assert set(train["cli"]) == {"dbrx_132b", "deepseek_v2_236b"}
     # a dispatch that keeps the last C pairs of each expert, not the
     # first, fails the per-expert loop
     real = smoke.expert_loop
