@@ -223,6 +223,35 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    within a multiple of the reference's own bf16 drift
    (``BF16_DRIFT``).  ``python -m repro_torch.launch.serve --arch
    zamba2_7b --reduced`` in its own process.
+16. audio-vlm — the audio and VLM families.  ``flash_attention`` at
+   their shapes, bf16 and f32, each against its plain version and timed
+   beside SDPA: Whisper's encoder (b 4, 20/20 heads of D 64, S 1 500,
+   non-causal), its cross-attention of a 448-token prompt and of one
+   decode row against the 1 500 frames, Qwen2-VL's prefill (64/8 heads
+   of D 128, S 2 048, causal).  Whisper-large-v3 at full width and depth
+   (32 + 32 layers, f32, random weights and frames from a seeded
+   ``torch.Generator``): ``encode`` alone, ``prefill`` at b=4, s=448
+   twice (96 launches a call: the encoder's 32, the decoder's 32 self-
+   and 32 cross-attentions), 64 teacher-forced decode steps (32
+   cross-attention launches each) held to the forward at every position
+   (``WHISPER_DECODE_TOL``, the JAX test's), the ``ContinuousBatcher``
+   (8 requests, 4 slots, then the EOS rerun), the decode step's device
+   time by kernel class, and the same weights in bf16 (last-position
+   logits within relative ``BF16_LOGIT_RTOL`` of f32).  Qwen2-VL-72B at
+   full width and depth 8 of 80 (38 GB f32): ``prefill`` at b=4, s=2048
+   with M-RoPE positions holding a 32 x 32 image block
+   (``mrope_image_positions``) twice, 64 text-only decode steps held to
+   the forward, and bf16 against f32 as for Whisper.  Whisper (4 + 4
+   layers) and Qwen2-VL (depth 1) on ``numpy_params`` held to the JAX
+   package's logits in ``tests/goldens/torch_audio_vlm.json`` (recorded
+   by ``tests/goldens/record_torch_audio_vlm.py``; B 2, S 128; Whisper
+   over 1 500 recorded-seed frames, its encoder output sampled; Qwen2-VL
+   with and without an image block), forward and decode, and in bf16
+   within ``golden_bf16``'s limit.  ``python -m repro_torch.launch.serve
+   --arch whisper_large_v3 --batch 4 --prompt-len 16 --gen 16`` (full
+   size) and ``--arch qwen2_vl_72b --reduced`` in their own processes.
+   The goldens' numpy weights are drawn on the host thread of phases
+   14-15.
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -1520,9 +1549,9 @@ def defined_rows(q, k, causal, offset):
 
 def check_attention(cases, dev, reps):
     """Each case through ``ops.flash_attention`` against its plain
-    version on the same inputs, timed with the plain version and, where
-    sq == sk and the mask is causal, SDPA (top-left aligned, so only
-    there the same function).  An f32 case (3xTF32 on the tensor cores)
+    version on the same inputs, timed with the plain version and SDPA
+    where that is the same function: every non-causal case, and a causal
+    one where sq == sk (SDPA's causal mask is top-left aligned).  An f32 case (3xTF32 on the tensor cores)
     also times its ``split_kv`` pre-pass alone and carries the bounds of
     one and of three TF32 products, of the FP32 CUDA cores and of memory.
     Returns the kernels-line row (the first case) with every case's
@@ -1556,9 +1585,9 @@ def check_attention(cases, dev, reps):
         plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=causal, offset=offset), max(1, reps // 4))
         library_ms = None
-        if causal and q.shape[2] == k.shape[2]:
+        if not causal or q.shape[2] == k.shape[2]:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), reps)
+                q, k, v, is_causal=causal, enable_gqa=True), reps)
         ops_count, nbytes = attention_work(q.shape, k.shape, v.shape[-1],
                                            q.element_size(), causal, offset)
         fp32 = ops_count / FP32_FLOP_PER_S * 1e3
@@ -1615,7 +1644,8 @@ def check_attention(cases, dev, reps):
                 ops_per_call=first["ops_per_call"],
                 bytes_per_call=first["bytes_per_call"],
                 library="torch.nn.functional.scaled_dot_product_attention("
-                        "is_causal=True, enable_gqa=True), sq == sk only",
+                        "is_causal=causal, enable_gqa=True); causal where "
+                        "sq == sk only",
                 calls_checked=len(out), cases=out)
 
 
@@ -1659,16 +1689,19 @@ def hold_golden(label, logits, want, ids) -> float:
     return err
 
 
-def teacher_forced(model, tokens, positions, dev, dtype=None):
+def teacher_forced(model, tokens, positions, dev, dtype=None, enc_out=None):
     """Logits [b, len(positions), V] of ``serve_step`` fed ``tokens`` one
-    position at a time (no attention kernel on this route), with a cache
-    of ``dtype`` (default f32)."""
+    position at a time (no attention kernel on this route but Whisper's
+    cross-attention), with a cache of ``dtype`` (default f32) whose
+    ``enc_out`` is ``enc_out`` where given (Whisper)."""
     import torch
 
     from repro_torch.models import init_cache
 
     b, s = tokens.shape
     cache = init_cache(model.cfg, b, s, dev, dtype or torch.float32)
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
     want = set(positions)
     out = []
     with torch.no_grad():
@@ -2056,17 +2089,21 @@ def main() -> int:
         moe_golden = json.load(f)
     with open(os.path.join(ROOT, "tests", "goldens", "torch_ssm.json")) as f:
         ssm_golden = json.load(f)
+    with open(os.path.join(ROOT, "tests", "goldens",
+                           "torch_audio_vlm.json")) as f:
+        av_golden = json.load(f)
     smi = nvidia_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         return run_phases(fullsize, realdata, engines, lm_golden, streams,
-                          mt_golden, moe_golden, ssm_golden, dev, smi, tmp)
+                          mt_golden, moe_golden, ssm_golden, av_golden, dev,
+                          smi, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
-               moe_golden, ssm_golden, dev, smi, tmp) -> int:
+               moe_golden, ssm_golden, av_golden, dev, smi, tmp) -> int:
     import concurrent.futures
 
     import torch
@@ -2158,14 +2195,17 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
         for k, v in mt_info["launches"].items():
             launches[k] = launches.get(k, 0) + v
 
-    # phases 14's and 15's golden weights (5.1 G and 1.7 G numpy normals)
-    # drawn on one host thread from here on, beside phases 12-14
+    # phases 14's, 15's and 16's golden weights (5.1 G, 1.7 G and 3.6 G
+    # numpy normals) drawn on one host thread from here on, beside phases
+    # 12-15
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     try:
         moe_tree = pool.submit(golden_tree, moe_golden,
                                moe_golden_config(moe_golden))
         ssm_trees = {arch: pool.submit(golden_tree, ssm_golden[arch], cfg)
                      for arch, cfg in ssm_golden_configs(ssm_golden).items()}
+        av_trees = {arch: pool.submit(golden_tree, av_golden[arch], cfg)
+                    for arch, cfg in av_golden_configs(av_golden).items()}
 
         with Phase("12-distributed"):
             large = dict(STREAM_LARGE, theta_sha256=stream_info[
@@ -2195,6 +2235,12 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
         with Phase("15-ssm"):
             rows["flash_attention"]["zamba2"], ssm_info = phase_ssm(
                 ssm_golden, dev, launches, trees=ssm_trees)
+            del ssm_trees
+
+        with Phase("16-audio-vlm"):
+            rows["flash_attention"]["audio_vlm"], av_info = phase_audio_vlm(
+                av_golden, dev, launches, trees=av_trees)
+            del av_trees
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -2217,7 +2263,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                                        "random_f32_rel_err", "library",
                                        "ms_packed", "pack_ms", "int_mm_ms",
                                        "tiled_e2e_ms", "training_launches",
-                                       "mla", "zamba2")
+                                       "mla", "zamba2", "audio_vlm")
                if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
@@ -2225,7 +2271,8 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                         engine_seconds=engine_seconds, lm=lm_info,
                         traced_tip_1m=trace_info, stream=stream_info,
                         multitenant=mt_info, distributed=dist_info,
-                        train=train_info, moe=moe_info, ssm=ssm_info)))
+                        train=train_info, moe=moe_info, ssm=ssm_info,
+                        audio_vlm=av_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -3973,11 +4020,12 @@ def moe_layer_check(label, model, tokens, dev) -> dict:
 
 
 def counted_prefills(label, model, tokens, dev, launches, n=2,
-                     per_call=None):
-    """``n`` timed prefills of ``tokens``, each launching
-    ``flash_attention`` ``per_call`` times (default once a layer) on the
-    card (none on the CPU) and no other kernel; returns the last logits
-    and the seconds."""
+                     per_call=None, **inputs):
+    """``n`` timed prefills of ``tokens`` (and ``inputs``: M-RoPE
+    positions, Whisper's frames), each launching ``flash_attention``
+    ``per_call`` times (default once a layer) on the card (none on the
+    CPU) and no other kernel; returns the last logits and the
+    seconds."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3990,7 +4038,7 @@ def counted_prefills(label, model, tokens, dev, launches, n=2,
         for _ in range(n):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            last = model.prefill(tokens)
+            last = model.prefill(tokens, **inputs)
             sync(dev)
             secs.append(time.perf_counter() - t0)
             counts = ops.launch_counts()
@@ -4685,12 +4733,13 @@ def ssm_bf16(spec, dev, launches, last32, tokens) -> dict:
     return info
 
 
-def golden_bf16(golden, cfg, tree, last32, dev) -> dict:
+def golden_bf16(golden, cfg, tree, last32, dev, **inputs) -> dict:
     """The golden's weights rounded to bf16: the last-position logits of
-    a prefill of the golden's tokens within relative L2 ``max(
-    BF16_LOGIT_RTOL, BF16_DRIFT * r)`` of the f32 model's ``last32``,
-    ``r`` the JAX package's own bf16-against-f32 drift on the same
-    weights and tokens (``bf16_prefill_rel``, recorded)."""
+    a prefill of the golden's tokens (and ``inputs``, floating ones
+    rounded to bf16 too) within relative L2 ``max(BF16_LOGIT_RTOL,
+    BF16_DRIFT * r)`` of the f32 model's ``last32``, ``r`` the JAX
+    package's own bf16-against-f32 drift on the same weights and inputs
+    (``bf16_prefill_rel``, recorded)."""
     import torch
 
     from repro_torch.models import DenseLM
@@ -4698,8 +4747,10 @@ def golden_bf16(golden, cfg, tree, last32, dev) -> dict:
 
     model = DenseLM(cfg, params_from_numpy(tree, cfg, dev, torch.bfloat16))
     tokens = torch.tensor(golden["tokens"], device=dev)
+    inputs = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+              for k, v in inputs.items()}
     with torch.no_grad():
-        last = model.prefill(tokens).float()
+        last = model.prefill(tokens, **inputs).float()
     rel = ((last - last32).norm() / last32.norm()).item()
     jax_rel = golden["bf16_prefill_rel"]
     limit = max(BF16_LOGIT_RTOL, BF16_DRIFT * jax_rel)
@@ -4784,6 +4835,416 @@ def phase_ssm(golden, dev, launches, spec=SSM, golden_cfgs=None,
     seconds["cli"], info["cli"] = serve_cli(spec["cli"], dev)
     info["seconds"] = seconds
     log(f"[smoke]   phase 15 seconds by step: {seconds}")
+    return row, info
+
+
+
+# ---------------------------------------------------------------------
+# phase 16: the audio (Whisper) and VLM (Qwen2-VL) families
+# ---------------------------------------------------------------------
+def mrope_image_positions(b, s, start, grid):
+    """Qwen2-VL's M-RoPE positions [b, 3, s] (int32 numpy) for text, then
+    an image of ``grid`` (h, w) patches from ``start``, then text: text
+    positions are equal on the (t, h, w) streams; a patch at (row, col)
+    sits at (start, start + row, start + col); the text after resumes at
+    start + max(h, w) on all three (Qwen2-VL's ``get_rope_index`` for one
+    image of one frame)."""
+    import numpy as np
+
+    gh, gw = grid
+    n = gh * gw
+    if start + n > s:
+        raise ValueError(f"an image of {n} patches at {start} does not fit "
+                         f"in {s} positions")
+    pos = np.empty((3, s), np.int64)
+    pos[:, :start] = np.arange(start)
+    row, col = np.divmod(np.arange(n), gw)
+    pos[0, start:start + n] = start
+    pos[1, start:start + n] = start + row
+    pos[2, start:start + n] = start + col
+    pos[:, start + n:] = start + max(gh, gw) + np.arange(s - start - n)
+    return np.ascontiguousarray(np.broadcast_to(
+        pos[None], (b, 3, s)).astype(np.int32))
+
+
+
+# Whisper's decode against its forward: tests/test_archs.py's
+# test_whisper_decode_matches_forward tolerance
+WHISPER_DECODE_TOL = dict(atol=2e-2, rtol=1e-2)
+# (label, q shape, kv shape, causal, offset): the attention shapes of
+# this phase's main paths (Whisper at b 4: its encoder, non-causal over
+# 1 500 frames; cross-attention of a 448-token prompt and of one decode
+# row against them; Qwen2-VL's 64/8 GQA prefill)
+_AV_SHAPES = (
+    ("whisper encoder", (4, 20, 1500, 64), (4, 20, 1500, 64), False, None),
+    ("whisper cross prefill", (4, 20, 448, 64), (4, 20, 1500, 64), False,
+     None),
+    ("whisper cross decode", (4, 20, 1, 64), (4, 20, 1500, 64), False, None),
+    ("qwen2-vl-72b prefill", (4, 64, 2048, 128), (4, 8, 2048, 128), True,
+     None),
+)
+AUDIO_VLM = dict(
+    kernel_cases=tuple((f"{label} {tag}", qs, ks, causal, offset, dt)
+                       for label, qs, ks, causal, offset in _AV_SHAPES
+                       for tag, dt in (("bf16", "bfloat16"),
+                                       ("f32", "float32"))),
+    reps=10,
+    # full width and full depth; the prompt at Whisper's text context
+    whisper=dict(arch="whisper_large_v3", batch=4, seq=448, seed=0,
+                 check_batch=2, check_seq=64,
+                 serve=dict(slots=4, requests=8, prompt=(8, 24), max_new=12,
+                            max_seq=48, eos_request=1, eos_index=5)),
+    # full width at depth 8 of 80 (full depth is 291 GB in f32); an
+    # image of 32 x 32 patches from position 512
+    qwen=dict(arch="qwen2_vl_72b", n_layers=8, batch=4, seq=2048, seed=1,
+              image=dict(start=512, grid=(32, 32)), check_batch=2,
+              check_seq=64),
+    cli=(["--arch", "whisper_large_v3", "--batch", "4", "--prompt-len", "16",
+          "--gen", "16"],
+         ["--arch", "qwen2_vl_72b", "--reduced"]),
+)
+
+
+def _av_config(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = spec.get("cfg") or get_config(spec["arch"])
+    return (dataclasses.replace(cfg, n_layers=spec["n_layers"])
+            if "n_layers" in spec else cfg)
+
+
+def _av_calls(cfg) -> int:
+    """``flash_attention`` launches of a prefill: Whisper's encoder
+    layers and each decoder layer's self- and cross-attention; one a
+    layer for Qwen2-VL."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def counted_decode(label, model, tokens, pos, dev, launches, enc_out=None):
+    """``teacher_forced`` over ``tokens`` with its ``flash_attention``
+    launches counted: one a layer and step for Whisper (its
+    cross-attention), none for a decoder-only model (plain decode
+    attention).  Returns the logits and the seconds."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    steps = max(pos) + 1
+    per_step = cfg.n_layers if cfg.family == "audio" else 0
+    want = {k: (steps * per_step * (torch.device(dev).type == "cuda")
+                if k == "flash_attention" else 0) for k in ops.KERNELS}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dec = teacher_forced(model, tokens, pos, dev, enc_out=enc_out)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect(label, "kernel launches", counts, want)
+    launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                   + counts["flash_attention"])
+    return dec, secs
+
+
+def whisper_f32(spec, dev, launches) -> tuple:
+    """Whisper-large-v3 at full width and depth in f32 (random weights
+    from a seeded ``torch.Generator``, frames ``randn · 0.02`` from it):
+    ``encode`` alone, timed prefills with their launches counted (one
+    each encoder layer, two each decoder layer), ``check_seq``
+    teacher-forced decode steps held to the forward at every position
+    (``WHISPER_DECODE_TOL``), the batcher, the decode step's device time
+    by kernel class.  Returns the numbers, the last-position logits, the
+    tokens and the frames."""
+    import torch
+
+    from repro_torch.models import DenseLM, init_params
+
+    cfg = _av_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev, torch.float32)
+    model = DenseLM(cfg, params)
+    sync(dev)
+    info = dict(init_s=time.perf_counter() - t0, weights_gb=sum(
+        p.numel() * p.element_size() for p in model.parameters()) / 1e9)
+    b, s = spec["batch"], spec["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=dev) * 0.02
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        model.encode(frames)
+        sync(dev)
+        info["encode_s"] = time.perf_counter() - t0
+    per_call = _av_calls(cfg)
+    last, info["prefill_s"] = counted_prefills(
+        f"{cfg.name} f32 prefill", model, tokens, dev, launches,
+        per_call=per_call, frames=frames)
+    info["prefill_tok_s"] = [b * s / t for t in info["prefill_s"]]
+    info["launches_per_prefill"] = per_call
+    log(f"[smoke]   {cfg.name} f32 at full width and depth ({cfg.encoder_layers}"
+        f" + {cfg.n_layers} layers, {info['weights_gb']:.2f} GB, made in "
+        f"{info['init_s']:.1f} s): encode b={b} x {cfg.encoder_seq} frames "
+        f"{info['encode_s']:.3f} s; prefill b={b} s={s} in "
+        f"{info['prefill_s']} s ({info['prefill_tok_s']} tok/s), {per_call} "
+        f"flash_attention launches each")
+
+    # ---- decode against forward, at every one of the first check_seq
+    n, cb = spec["check_seq"], spec["check_batch"]
+    ids, fr = tokens[:cb, :n].contiguous(), frames[:cb].contiguous()
+    with torch.no_grad():
+        fwd = model(ids, frames=fr)
+        enc = model.encode(fr)
+    dec, decode_s = counted_decode(f"{cfg.name} decode", model, ids,
+                                   list(range(n)), dev, launches, enc_out=enc)
+    info["decode"] = dict(steps=n, batch=cb, decode_s=decode_s,
+                          ms_per_step=decode_s / n * 1e3,
+                          max_abs_err=(fwd - dec).abs().max().item(),
+                          max_abs=fwd.abs().max().item())
+    log(f"[smoke]   {cfg.name} decode vs forward, all {n} positions of "
+        f"{cb} rows ({n} steps, {cfg.n_layers} cross-attention launches "
+        f"each): {info['decode']} (atol {WHISPER_DECODE_TOL['atol']}, rtol "
+        f"{WHISPER_DECODE_TOL['rtol']})")
+    torch.testing.assert_close(dec, fwd, **WHISPER_DECODE_TOL)
+    del fwd, dec, enc
+    info["serve"] = serve_requests(cfg, params, spec["serve"], dev, cfg.vocab)
+    info["decode_profile"] = profile_decode(model, tokens, s, dev)
+    last = last.float()
+    del model, params
+    _free(dev)
+    return info, last, tokens, frames
+
+
+def qwen_f32(spec, dev, launches) -> tuple:
+    """Qwen2-VL-72B at full width, cut in depth, in f32 (random weights
+    from a seeded ``torch.Generator``): timed prefills with the image
+    block's M-RoPE positions (``mrope_image_positions``), one launch a
+    layer; ``check_seq`` teacher-forced decode steps on text-only
+    positions held to the forward there (``LOGIT_ATOL``).  Returns the
+    numbers, the last-position logits, the tokens and the positions."""
+    import torch
+
+    from repro_torch.models import DenseLM, init_params
+
+    cfg = _av_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    t0 = time.perf_counter()
+    model = DenseLM(cfg, init_params(cfg, gen, dev, torch.float32))
+    sync(dev)
+    info = dict(init_s=time.perf_counter() - t0, weights_gb=sum(
+        p.numel() * p.element_size() for p in model.parameters()) / 1e9)
+    b, s = spec["batch"], spec["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    image = spec["image"]
+    positions = torch.from_numpy(mrope_image_positions(
+        b, s, image["start"], image["grid"])).to(dev)
+    last, info["prefill_s"] = counted_prefills(
+        f"{cfg.name} f32 prefill", model, tokens, dev, launches,
+        positions=positions)
+    info["prefill_tok_s"] = [b * s / t for t in info["prefill_s"]]
+    log(f"[smoke]   {cfg.name} f32 at full width, depth {cfg.n_layers} "
+        f"({info['weights_gb']:.2f} GB, made in {info['init_s']:.1f} s): "
+        f"prefill b={b} s={s} with an image of {image['grid']} patches at "
+        f"{image['start']} in {info['prefill_s']} s ({info['prefill_tok_s']}"
+        f" tok/s), {cfg.n_layers} flash_attention launches each")
+    n, cb = spec["check_seq"], spec["check_batch"]
+    ids = tokens[:cb, :n].contiguous()
+    with torch.no_grad():
+        fwd = model(ids)
+    dec, decode_s = counted_decode(f"{cfg.name} decode", model, ids,
+                                   list(range(n)), dev, launches)
+    info["decode"] = dict(steps=n, batch=cb, decode_s=decode_s,
+                          ms_per_step=decode_s / n * 1e3,
+                          max_abs_err=close_logits(
+                              f"{cfg.name} text-only forward vs decode", fwd,
+                              dec),
+                          max_abs=fwd.abs().max().item())
+    log(f"[smoke]   {cfg.name} text-only decode vs forward, all {n} "
+        f"positions of {cb} rows: {info['decode']} (atol {LOGIT_ATOL})")
+    del model, fwd, dec
+    _free(dev)
+    return info, last.float(), tokens, positions
+
+
+def av_bf16(spec, dev, launches, last32, tokens, **inputs) -> dict:
+    """The same weights in bf16 (the generator redrawn, then rounded),
+    the f32 run's inputs (frames rounded to bf16): timed prefills, their
+    launches counted, the last-position logits within relative L2
+    ``BF16_LOGIT_RTOL`` of the f32 model's ``last32``."""
+    import torch
+
+    from repro_torch.models import DenseLM, init_params
+
+    cfg = _av_config(spec)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    model = DenseLM(cfg, init_params(cfg, gen, dev, torch.bfloat16))
+    inputs = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+              for k, v in inputs.items()}
+    last, secs = counted_prefills(f"{cfg.name} bf16 prefill", model, tokens,
+                                  dev, launches, per_call=_av_calls(cfg),
+                                  **inputs)
+    rel = ((last.float() - last32).norm() / last32.norm()).item()
+    b, s = tokens.shape
+    info = dict(prefill_s=secs, prefill_tok_s=[b * s / t for t in secs],
+                rel=rel)
+    log(f"[smoke]   {cfg.name} bf16: prefill b={b} s={s} in {secs} s "
+        f"({info['prefill_tok_s']} tok/s); last-position logits vs f32 "
+        f"relative L2 {rel:.3e} (rtol {BF16_LOGIT_RTOL})")
+    del model
+    _free(dev)
+    if not rel <= BF16_LOGIT_RTOL:
+        raise AssertionError(f"{cfg.name} bf16 prefill: relative logit error "
+                             f"{rel} > {BF16_LOGIT_RTOL} against f32")
+    return info
+
+
+def golden_frames(golden, cfg, dev):
+    """The Whisper golden's frames (the recorder's numpy draw), after the
+    recorded checks of their first values and sum."""
+    import numpy as np
+    import torch
+
+    spec = golden["frames"]
+    b = len(golden["tokens"])
+    fr = (np.random.default_rng(spec["seed"]).normal(
+        size=(b, cfg.encoder_seq, cfg.d_model)) * spec["scale"]).astype(
+            np.float32)
+    first = [float(x) for x in fr.reshape(-1)[:4]]
+    total = float(fr.sum(dtype=np.float64))
+    if first != spec["first"] or abs(total - spec["sum"]) > 1e-6 * (
+            1 + abs(spec["sum"])):
+        raise AssertionError(f"golden frames: {first}, {total} != the "
+                             f"recorder's {spec} (another numpy stream)")
+    return torch.from_numpy(fr).to(dev)
+
+
+def hold_av_golden(golden, cfg, tree, dev) -> dict:
+    """``cfg`` on the golden's weights held to the JAX package's
+    recorded logits: Whisper's encoder sample, forward and teacher-forced
+    decode (its cache's ``enc_out`` the encoder's output) on the
+    recorded frames; Qwen2-VL's forward with the image block's positions,
+    and forward and decode on text-only ones; forward and decode held to
+    each other; then the weights in bf16 (``golden_bf16``)."""
+    import torch
+
+    model, upload_s = golden_model(golden, cfg, dev, tree)
+    tokens = torch.tensor(golden["tokens"], device=dev)
+    pos, ids = golden["positions"], golden["ids"]
+    errs = {}
+    with torch.no_grad():
+        if cfg.family == "audio":
+            inputs = dict(frames=golden_frames(golden, cfg, dev))
+            enc = model.encode(inputs["frames"])
+            sample = golden["encoder"]
+            got = enc[:, sample["frames"]][:, :, sample["channels"]].cpu()
+            errs["encoder"] = close_logits(
+                "golden encoder output", got,
+                torch.tensor(sample["values"], dtype=torch.float64))
+        else:
+            inputs = dict(positions=torch.tensor(golden["mrope_positions"],
+                                                 device=dev))
+            enc = None
+            errs["image_forward"] = hold_golden(
+                "golden image forward", model(tokens, **inputs)[:, pos],
+                golden["image_forward"], ids)
+        text = inputs if cfg.family == "audio" else {}
+        fwd = model(tokens, **text)[:, pos]
+        last32 = model.prefill(tokens, **inputs).float()
+    dec = teacher_forced(model, tokens, pos, dev, enc_out=enc)
+    errs.update(forward=hold_golden("golden forward", fwd, golden["forward"],
+                                    ids),
+                decode=hold_golden("golden decode", dec, golden["decode"], ids),
+                forward_vs_decode=close_logits("golden forward vs decode",
+                                               fwd, dec))
+    del model, enc, fwd, dec
+    _free(dev)
+    errs["bf16"] = golden_bf16(golden, cfg, tree, last32, dev, **inputs)
+    errs["upload_s"] = upload_s
+    return errs
+
+
+def av_golden_configs(golden) -> dict:
+    """The configurations ``torch_audio_vlm.json`` was recorded at."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return {arch: dataclasses.replace(
+        get_config(arch), n_layers=rec["n_layers"],
+        **({"encoder_layers": rec["encoder_layers"]}
+           if "encoder_layers" in rec else {}))
+        for arch, rec in golden.items()}
+
+
+def phase_audio_vlm(golden, dev, launches, spec=AUDIO_VLM, golden_cfgs=None,
+                    trees=None) -> tuple:
+    """Phase 16; returns (the flash_attention numbers at its shapes, the
+    rest).  The goldens' numpy weights are ``trees`` (futures by arch,
+    started early by the caller) or drawn here in a thread beside the
+    card's work."""
+    import concurrent.futures
+
+    golden_cfgs = golden_cfgs or av_golden_configs(golden)
+    seconds = {}
+    info = {}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        if trees is None:
+            trees = {arch: pool.submit(golden_tree, golden[arch], c)
+                     for arch, c in golden_cfgs.items()}
+        t0 = time.perf_counter()
+        row = check_attention(spec["kernel_cases"], dev, spec["reps"])
+        _free(dev)
+        seconds["attention"] = time.perf_counter() - t0
+        launched = launches.get("flash_attention", 0)
+        t0 = time.perf_counter()
+        info["whisper"], last32, tokens, frames = whisper_f32(
+            spec["whisper"], dev, launches)
+        seconds["whisper_f32"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["whisper_bf16"] = av_bf16(spec["whisper"], dev, launches, last32,
+                                       tokens, frames=frames)
+        del frames
+        seconds["whisper_bf16"] = time.perf_counter() - t0
+        row["launches"] = {"whisper": launches.get("flash_attention", 0)
+                           - launched}
+        launched = launches.get("flash_attention", 0)
+        t0 = time.perf_counter()
+        info["qwen"], last32, tokens, positions = qwen_f32(spec["qwen"], dev,
+                                                           launches)
+        seconds["qwen_f32"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["qwen_bf16"] = av_bf16(spec["qwen"], dev, launches, last32,
+                                    tokens, positions=positions)
+        seconds["qwen_bf16"] = time.perf_counter() - t0
+        row["launches"]["qwen"] = launches.get("flash_attention", 0) - launched
+
+        # ---- the goldens at full width, cut in depth
+        info["golden"] = {}
+        for arch, cfg in golden_cfgs.items():
+            t0 = time.perf_counter()
+            tree = trees[arch].result()
+            seconds[f"{arch}_golden_wait"] = time.perf_counter() - t0
+            info["golden"][arch] = hold_av_golden(golden[arch], cfg, tree, dev)
+            del tree
+            _free(dev)
+            seconds[f"{arch}_golden"] = time.perf_counter() - t0
+            log(f"[smoke]   golden {cfg.name} (depth {cfg.n_layers}, full "
+                f"width): held to the JAX package's logits, max abs errs "
+                f"{info['golden'][arch]}")
+
+    # ---- the CLIs, each in its own process
+    info["cli"] = []
+    for args in spec["cli"]:
+        t0 = time.perf_counter()
+        info["cli"].append(serve_cli(args, dev)[1])
+        seconds[f"cli {args[1]}"] = time.perf_counter() - t0
+    info["seconds"] = seconds
+    log(f"[smoke]   phase 16 seconds by step: {seconds}")
     return row, info
 
 

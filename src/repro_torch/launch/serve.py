@@ -7,9 +7,12 @@ repro.launch.serve`` (``--arch --reduced --batch --prompt-len --gen
 versions of the kernels).  The weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed`` (not the JAX package's
 numbers); the prompts come from ``np.random.default_rng(--seed)`` as
-there.  Dense-, MoE-, SSM- and hybrid-family architectures (MoE with
-MLA: ``deepseek_v2_236b``; with GQA: ``dbrx_132b``; SSM:
-``xlstm_1_3b``; hybrid: ``zamba2_7b``)::
+there, and for the audio family the frame embeddings after them
+(``normal · 0.02``, float32, the JAX CLI's draw), encoded into the
+cache's ``enc_out``.  Every family's architectures (MoE with MLA:
+``deepseek_v2_236b``; with GQA: ``dbrx_132b``; SSM: ``xlstm_1_3b``;
+hybrid: ``zamba2_7b``; audio: ``whisper_large_v3``; VLM, text-only
+positions: ``qwen2_vl_72b``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
         --batch 4 --prompt-len 16 --gen 16
@@ -19,6 +22,8 @@ MLA: ``deepseek_v2_236b``; with GQA: ``dbrx_132b``; SSM:
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
         --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper_large_v3 --batch 4 --prompt-len 16 --gen 16
 """
 from __future__ import annotations
 
@@ -46,6 +51,12 @@ def run(args) -> int:
     total = args.prompt_len + args.gen
     prompts = rng.integers(0, cfg.vocab, (b, args.prompt_len)).astype(np.int64)
     cache = init_cache(cfg, b, total, dev, torch.float32)
+    if cfg.family == "audio":
+        # the audio frontend stub's input, drawn as the JAX CLI draws it
+        frames = (rng.normal(size=(b, cfg.encoder_seq, cfg.d_model))
+                  * 0.02).astype(np.float32)
+        with torch.no_grad():
+            cache["enc_out"] = model.encode(torch.from_numpy(frames).to(dev))
 
     # prefill via the decode path (teacher-forced) then greedy generate
     tok = torch.from_numpy(prompts[:, 0]).to(dev)

@@ -2,8 +2,9 @@
 
 The same flags, output lines and exit codes as the JAX package's
 ``python -m repro.launch.train``, plus ``--device`` (default ``cuda``;
-``cpu`` runs the kernels' plain versions), for every ported family
-(dense, MoE, SSM, hybrid)::
+``cpu`` runs the kernels' plain versions), for every family (Whisper's
+batches carry seeded frame embeddings, Qwen2-VL's M-RoPE positions on
+three equal streams, as the JAX CLI's ``extra``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
@@ -68,7 +69,9 @@ def train(args) -> dict:
 
     dcfg = DataConfig(batch=args.batch, seq=args.seq or cfg.max_seq,
                       vocab=cfg.vocab, seed=args.seed)
-    data = synthetic_batches(dcfg, start_step=start)
+    data = synthetic_batches(dcfg, start_step=start,
+                             extra=batch_extra(cfg, args.batch,
+                                               args.seq or cfg.max_seq))
 
     det = StragglerDetector()
     losses, seconds = [], []
@@ -102,6 +105,23 @@ def train(args) -> dict:
           f"({len(losses)} steps, stragglers={det.flagged})", flush=True)
     return dict(losses=losses, step_seconds=seconds, start=start,
                 stragglers=det.flagged, cfg=cfg, params=params)
+
+
+def batch_extra(cfg, batch: int, seq: int):
+    """The JAX CLI's per-step extra inputs: Whisper's frame embeddings
+    [batch, encoder_seq, d] (normal · 0.02, float32) and M-RoPE's
+    positions [batch, 3, seq] (0..seq-1 on every stream), each drawn
+    from the step's generator after the tokens; None for the rest."""
+    extra = None
+    if cfg.family == "audio":
+        extra = {"frames": lambda rng: rng.normal(
+            size=(batch, cfg.encoder_seq, cfg.d_model)
+        ).astype(np.float32) * 0.02}
+    if cfg.rope_type == "mrope":
+        extra = {"positions": lambda rng: np.broadcast_to(
+            np.arange(seq, dtype=np.int32)[None, None],
+            (batch, 3, seq)).copy()}
+    return extra
 
 
 def run(args) -> int:

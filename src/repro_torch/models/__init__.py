@@ -1,5 +1,5 @@
-"""Model zoo, the dense, MoE, SSM and hybrid families: the JAX
-package's ``repro.models`` API on PyTorch, training loss included
+"""Model zoo, every family (dense, MoE, VLM, SSM, hybrid, audio): the
+JAX package's ``repro.models`` API on PyTorch, training loss included
 (sharding and the dry-run's specs are not ported)."""
 from .config import ModelConfig, reduced
 from .model import (

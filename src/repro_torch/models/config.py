@@ -4,8 +4,7 @@ A copy of the JAX package's ``models/config.py`` (same fields, defaults
 and ``reduced``), with the parameter counts taken from the port's own
 specs.  One frozen dataclass; every family (dense / moe / ssm / hybrid /
 audio / vlm) is a point in this space.  ``repro_torch/configs/<arch>.py``
-holds the exact published values.  The port runs the dense, MoE, SSM
-and hybrid families.
+holds the exact published values.  The port runs every family.
 """
 from __future__ import annotations
 
@@ -109,8 +108,7 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     def param_count(self) -> int:
-        """Total parameter count, from the port's parameter specs (the
-        audio and VLM families raise NotImplementedError)."""
+        """Total parameter count, from the port's parameter specs."""
         from .model import param_specs  # lazy, avoids a cycle
         return sum(_numel(s.shape) for _, s in _leaves(param_specs(self)))
 

@@ -1,14 +1,17 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: parameter
-specs, init, the full-sequence forward, the training loss, prefill and
-the decode step.
+"""Model assembly for every family: parameter specs, init, the
+full-sequence forward, the training loss, prefill and the decode step.
 
-The port of the JAX package's ``models/model.py`` (its decoder-only
-families: GQA or MLA attention with a dense or MoE FFN; xLSTM's groups
-of mLSTM layers and one sLSTM; Zamba2's Mamba2 layers with one shared
-attention block applied every ``attn_every`` layers).  Parameters keep
-the JAX package's tree: a nested dict whose per-layer tensors are
-stacked on a leading [L, ...] axis (xLSTM: [G, M, ...] and [G, ...]),
-so one tree carries across between the packages
+The port of the JAX package's ``models/model.py``: GQA or MLA attention
+with a dense or MoE FFN (dense, moe; vlm: Qwen2-VL's decoder under
+M-RoPE, its patch frontend a stub); xLSTM's groups of mLSTM layers and
+one sLSTM (ssm); Zamba2's Mamba2 layers with one shared attention block
+applied every ``attn_every`` layers (hybrid); Whisper's encoder and
+decoder (audio: ``_whisper_encode`` over precomputed frame embeddings,
+its conv frontend a stub, and a decoder whose layers add
+cross-attention to the encoder's output).  Parameters keep the JAX
+package's tree: a nested dict whose per-layer tensors are stacked on a
+leading [L, ...] axis (xLSTM: [G, M, ...] and [G, ...]; Whisper: one
+stack for each side), so one tree carries across between the packages
 (``convert.params_from_numpy``).  ``DenseLM`` and its layer modules are
 ``nn.Module`` views of that tree for serving (no copies: a layer's
 parameters are its slices, registered without grad); ``prefill`` and
@@ -20,8 +23,10 @@ rematerialised as the JAX package's ``_maybe_remat`` does
 (``ref.matmul_f32``, backward included), whatever the process's TF32
 setting.
 
-The audio and VLM families raise ``NotImplementedError`` naming the
-ROADMAP item they wait for (15b.4).
+Whisper here is the reference's, not the published model: RMSNorm and
+sinusoidal positions on both sides, and a decode step that recomputes
+every layer's cross-attention keys and values from the encoder output
+(``_decode_whisper``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -29,14 +34,15 @@ import dataclasses
 import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint
 
 from .config import ModelConfig
 from . import ssm as S
-from .layers import mlp, mrope_positions, rms_norm
-from .transformer import (_NOT_PORTED, attention, attention_decode,
+from .layers import blockwise_attention, mlp, mrope_positions, rms_norm
+from .transformer import (_heads, _out, attention, attention_decode,
                           decoder_block, decoder_block_decode)
 from ..kernels.ref import matmul_f32
 
@@ -63,23 +69,22 @@ class PSpec(NamedTuple):
     init: str = "normal"  # normal | ones | zeros | a_log
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (the port "
-            f"runs {', '.join(PORTED_FAMILIES)}); {_NOT_PORTED}")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(expected one of {', '.join(FAMILIES)})")
 
 
 # =====================================================================
 # Parameter specs (the JAX package's shapes and key order, without
 # sharding axes)
 # =====================================================================
-def _attn_specs(cfg: ModelConfig, L: int) -> Dict:
+def _attn_specs(cfg: ModelConfig, L: int, cross: bool = False) -> Dict:
     d = cfg.d_model
-    if cfg.is_mla:
+    if cfg.is_mla and not cross:
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         return dict(wq=PSpec((L, d, cfg.n_heads * (dn + dr))),
                     kv_down=PSpec((L, d, cfg.kv_lora + dr)),
@@ -111,6 +116,12 @@ def _ffn_specs(cfg: ModelConfig, L: int) -> Dict:
     if cfg.mlp_type in ("swiglu", "geglu"):
         out["w3"] = PSpec((L, d, ff))
     return out
+
+
+def _decoder_block_specs(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    return dict(norm1=PSpec((L, d), "ones"), attn=_attn_specs(cfg, L),
+                norm2=PSpec((L, d), "ones"), ffn=_ffn_specs(cfg, L))
 
 
 def _mamba_specs(cfg: ModelConfig, L: int) -> Dict:
@@ -149,19 +160,23 @@ def _xlstm_specs(cfg: ModelConfig) -> Dict:
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    _require_ported(cfg)
+    _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
     specs: Dict[str, Any] = dict(embed=PSpec((cfg.vocab, d)),
                                  final_norm=PSpec((d,), "ones"))
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((d, cfg.vocab))
-    if cfg.family in ("dense", "moe"):
-        specs["blocks"] = dict(norm1=PSpec((L, d), "ones"),
-                               attn=_attn_specs(cfg, L),
-                               norm2=PSpec((L, d), "ones"),
-                               ffn=_ffn_specs(cfg, L))
+    if cfg.family in ("dense", "moe", "vlm"):
+        specs["blocks"] = _decoder_block_specs(cfg, L)
     elif cfg.family == "ssm":
         specs.update(_xlstm_specs(cfg))
+    elif cfg.family == "audio":  # whisper enc-dec
+        specs["enc_blocks"] = _decoder_block_specs(cfg, cfg.encoder_layers)
+        dec = _decoder_block_specs(cfg, L)
+        dec["norm_x"] = PSpec((L, d), "ones")
+        dec["cross"] = _attn_specs(cfg, L, cross=True)
+        specs["dec_blocks"] = dec
+        specs["enc_norm"] = PSpec((d,), "ones")
     else:  # hybrid: the shared block is dense GQA whatever cfg says
         specs["blocks"] = _mamba_specs(cfg, L)
         shared = dataclasses.replace(cfg, kv_lora=0, n_experts=0)
@@ -238,14 +253,18 @@ def layer_trees(blocks: dict) -> list:
 
 
 # the top-level keys whose leaves are stacked per layer (xLSTM: per group)
-_LAYER_KEYS = ("blocks", "mlstm", "slstm")
+_LAYER_KEYS = ("blocks", "mlstm", "slstm", "enc_blocks", "dec_blocks")
 
 
 def _stacked(params, cfg: ModelConfig) -> dict:
-    """The part of the tree stacked on a leading layer axis (xLSTM: its
-    group axis, over the mLSTM and sLSTM subtrees)."""
+    """The part of the tree stacked on a leading layer axis that the
+    backbone runs (xLSTM: its group axis, over the mLSTM and sLSTM
+    subtrees; Whisper: its decoder, whose encoder ``enc_blocks`` runs
+    apart)."""
     if cfg.family == "ssm":
         return {k: params[k] for k in ("mlstm", "slstm")}
+    if cfg.family == "audio":
+        return params["dec_blocks"]
     return params["blocks"]
 
 
@@ -289,10 +308,11 @@ class _TreeModule(nn.Module):
 
 
 class LayerTree(_TreeModule):
-    """One layer's parameters: a decoder layer's (dense, moe), a Mamba2
-    layer's (hybrid), or one xLSTM group's (ssm: its mLSTM layers
-    stacked [M, ...], its sLSTM layer); the family's functions in this
-    module run them."""
+    """One layer's parameters: a decoder layer's (dense, moe, vlm; a
+    Whisper encoder layer), a Whisper decoder layer's (its
+    cross-attention and ``norm_x`` too), a Mamba2 layer's (hybrid), or
+    one xLSTM group's (ssm: its mLSTM layers stacked [M, ...], its sLSTM
+    layer); the family's functions in this module run them."""
 
     def __init__(self, p: dict):
         super().__init__()
@@ -300,20 +320,23 @@ class LayerTree(_TreeModule):
 
 
 class DenseLM(_TreeModule):
-    """A decoder-only LM of any ported family over a parameter tree in
-    the JAX package's layout (``init_params``,
-    ``convert.params_from_numpy``), one ``LayerTree`` a layer (xLSTM: a
-    group); Zamba2's shared attention block sits in the model's own
-    tree."""
+    """An LM of any family over a parameter tree in the JAX package's
+    layout (``init_params``, ``convert.params_from_numpy``), one
+    ``LayerTree`` a layer (xLSTM: a group) in ``blocks``; Whisper's
+    encoder layers in ``enc_blocks`` beside its decoder's; Zamba2's
+    shared attention block sits in the model's own tree."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _require_ported(cfg)
+        _check_family(cfg)
         self.cfg = cfg
         self._register_tree({k: v for k, v in params.items()
                              if k not in _LAYER_KEYS})
         self.blocks = nn.ModuleList(
             LayerTree(p) for p in layer_trees(_stacked(params, cfg)))
+        if cfg.family == "audio":
+            self.enc_blocks = nn.ModuleList(
+                LayerTree(p) for p in layer_trees(params["enc_blocks"]))
 
     def layers(self) -> list:
         """The per-layer trees (``_layers``'s structure) of the blocks."""
@@ -325,20 +348,36 @@ class DenseLM(_TreeModule):
     def unembed(self, x):
         return _unembed(self.tree(), x, self.cfg)
 
-    def forward(self, tokens, positions=None, return_hidden: bool = False):
-        """Full-sequence forward -> logits [b, s, vocab] (or hidden)."""
-        return _forward(self.tree(), self.layers(), tokens, self.cfg,
-                        positions, return_hidden)
+    def encode(self, frames):
+        """Whisper's encoder output [b, encoder_seq, d] of frame
+        embeddings ``frames`` [b, encoder_seq, d] (the audio frontend is
+        a stub, as in the JAX package): what a decode cache's
+        ``enc_out`` holds."""
+        if self.cfg.family != "audio":
+            raise ValueError(f"{self.cfg.name}: only the audio family has "
+                             "an encoder")
+        return _whisper_encode(self.tree(), frames, self.cfg,
+                               [blk.tree() for blk in self.enc_blocks])
 
-    def prefill(self, tokens, positions=None):
+    def forward(self, tokens, positions=None, frames=None,
+                return_hidden: bool = False):
+        """Full-sequence forward -> logits [b, s, vocab] (or hidden);
+        Whisper's text attends to the encoder's output of ``frames``."""
+        enc_out = self.encode(frames) if self.cfg.family == "audio" else None
+        return _forward(self.tree(), self.layers(), tokens, self.cfg,
+                        positions, return_hidden, enc_out)
+
+    def prefill(self, tokens, positions=None, frames=None):
         """Last-position logits [b, vocab] of the full forward (only the
         last position is unembedded: the same rows of the same product)."""
-        return self.unembed(self(tokens, positions, return_hidden=True)[:, -1])
+        return self.unembed(self(tokens, positions, frames,
+                                 return_hidden=True)[:, -1])
 
     def serve_step(self, cache: Dict, token, length: int):
         """One decode step: token [b] -> (logits [b, vocab], cache), the
         cache (``cache_specs``) written in place: keys and values (or
-        MLA's ckv rows) at ``length``, recurrent states overwritten."""
+        MLA's ckv rows) at ``length``, recurrent states overwritten;
+        Whisper's ``enc_out`` is read, not written."""
         x = self.embed_tokens(token[:, None])[:, 0]
         x = _DECODE[self.cfg.family](self.tree(), self.layers(), cache, x,
                                      length, self.cfg)
@@ -364,6 +403,28 @@ def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
 def _unembed(params, x, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return matmul_f32(x, w)
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid(s: int, d: int, dtype, device=None) -> torch.Tensor:
+    """The sinusoidal position table [s, d] (sines, then cosines): made
+    in float64 by numpy and cast once to ``dtype``, as the JAX
+    package's (the same numbers); kept per (s, d, dtype, device), so
+    callers must not write into it."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10_000 ** (2 * i / d))
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out).to(device=device, dtype=dtype)
+
+
+def _sinusoid_at(pos, d: int, dtype, device=None) -> torch.Tensor:
+    """The sinusoidal embedding [d] of one position, in float32 from the
+    position (as the JAX package's: not the table's float64 numbers)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)
+    ang = torch.as_tensor(pos, device=device).to(torch.float32) / torch.pow(
+        10_000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(dtype)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -414,13 +475,67 @@ def _shared_block(h, shared, cfg: ModelConfig, positions):
     return h + mlp(f, shared["ffn"], cfg.mlp_type)
 
 
-def _backbone(params, layers, x, cfg: ModelConfig, positions):
+def _whisper_encode(params, frames, cfg: ModelConfig, layers=None):
+    """Whisper's encoder: frames [b, se, d] plus the sinusoid table, then
+    non-causal decoder blocks over ``enc_blocks`` (``layers``: their
+    per-layer trees, split from the tree unless given), then RMSNorm
+    with ``enc_norm``.  The positions go unused (``rope_type`` none)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frames")
+    b, se, d = frames.shape
+    x = frames + _sinusoid(se, d, frames.dtype, frames.device)[None]
+    pos = torch.arange(se, dtype=torch.int32,
+                       device=frames.device)[None].expand(b, se)
+    body = _maybe_remat(
+        lambda h, p: decoder_block(h, p, cfg, pos, causal=False), cfg)
+    for p in layer_trees(params["enc_blocks"]) if layers is None else layers:
+        x = body(x, p)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_attention(x, p, cfg: ModelConfig, memory):
+    """q from the text x [b, s, d], k and v from ``memory`` [b, se, d]
+    (cast to x's dtype), non-causal through the ``flash_attention``
+    kernel; s is 1 in a decode step."""
+    hd = cfg.resolved_head_dim
+    memory = memory.to(x.dtype)
+    q = _heads(x, p["wq"], cfg.n_heads, hd)
+    k = _heads(memory, p["wk"], cfg.n_kv_heads, hd)
+    v = _heads(memory, p["wv"], cfg.n_kv_heads, hd)
+    return _out(blockwise_attention(q, k, v, causal=False), p)
+
+
+def _whisper_layer(h, p, cfg: ModelConfig, positions, enc_out):
+    """One decoder layer: causal self-attention, then ``norm_x`` and
+    cross-attention to ``enc_out``, then ``norm2`` and the MLP."""
+    a = rms_norm(h, p["norm1"], cfg.norm_eps)
+    h = h + attention(a, p["attn"], cfg, positions, causal=True)
+    cx = rms_norm(h, p["norm_x"], cfg.norm_eps)
+    h = h + _cross_attention(cx, p["cross"], cfg, enc_out)
+    f = rms_norm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(f, p["ffn"], cfg.mlp_type)
+
+
+def _whisper_decode_train(params, x, cfg: ModelConfig, positions, enc_out,
+                          layers=None):
+    """Whisper's decoder stack over x [b, s, d] (``layers``: the
+    per-layer trees of ``dec_blocks``, split unless given), each layer
+    rematerialised."""
+    body = _maybe_remat(
+        lambda h, p, m: _whisper_layer(h, p, cfg, positions, m), cfg)
+    for p in layer_trees(params["dec_blocks"]) if layers is None else layers:
+        x = body(x, p, enc_out)
+    return x
+
+
+def _backbone(params, layers, x, cfg: ModelConfig, positions, enc_out=None):
     """The layers of ``cfg``'s family over x [b, s, d], each
     rematerialised as the JAX package's backbone does: a decoder layer;
     an mLSTM layer (an xLSTM group's sLSTM layer is not); a Mamba2 layer
     with, after every ``attn_every``-th, the shared block (JAX's
-    ``lax.cond`` on a static flag)."""
-    if cfg.family in ("dense", "moe"):
+    ``lax.cond`` on a static flag); Whisper's text, the sinusoid table
+    added, through its decoder layers against ``enc_out``."""
+    if cfg.family in ("dense", "moe", "vlm"):
         body = _maybe_remat(
             lambda h, p: decoder_block(h, p, cfg, positions), cfg)
         for p in layers:
@@ -433,6 +548,9 @@ def _backbone(params, layers, x, cfg: ModelConfig, positions):
             sp = gp["slstm"]
             x = x + S.slstm_mix(rms_norm(x, sp["norm"], cfg.norm_eps), sp,
                                 cfg)
+    elif cfg.family == "audio":
+        x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        x = _whisper_decode_train(params, x, cfg, positions, enc_out, layers)
     else:
         plain = _maybe_remat(lambda h, p: _mamba_layer(h, p, cfg), cfg)
         with_attn = _maybe_remat(lambda h, p, shared: _shared_block(
@@ -444,26 +562,31 @@ def _backbone(params, layers, x, cfg: ModelConfig, positions):
 
 
 def _forward(params, layers, tokens, cfg: ModelConfig, positions,
-             return_hidden: bool) -> torch.Tensor:
+             return_hidden: bool, enc_out=None) -> torch.Tensor:
     """The full-sequence forward of ``forward`` and ``DenseLM``: the
     embedding, final norm, head (and Zamba2's shared block) from
-    ``params``, the layers from the per-layer trees ``layers``."""
+    ``params``, the layers from the per-layer trees ``layers``
+    (Whisper's decoder, against the encoder output ``enc_out``)."""
     if positions is None:
         positions = _positions(cfg, *tokens.shape, tokens.device)
     x = _backbone(params, layers, _embed(params, tokens, cfg), cfg,
-                  positions)
+                  positions, enc_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x if return_hidden else _unembed(params, x, cfg)
 
 
-def forward(params, tokens, cfg: ModelConfig, positions=None,
+def forward(params, tokens, cfg: ModelConfig, positions=None, frames=None,
             return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits [b, s, vocab] (or hidden), on the
     tree's own tensors: differentiable in every leaf that requires grad,
-    each layer rematerialised as ``cfg`` asks."""
-    _require_ported(cfg)
+    each layer rematerialised as ``cfg`` asks.  ``positions`` [b, s]
+    (M-RoPE: [b, 3, s]) default to 0..s-1 on every stream; Whisper
+    encodes ``frames`` [b, encoder_seq, d] first."""
+    _check_family(cfg)
+    enc_out = (_whisper_encode(params, frames, cfg)
+               if cfg.family == "audio" else None)
     return _forward(params, _layers(params, cfg), tokens, cfg, positions,
-                    return_hidden)
+                    return_hidden, enc_out)
 
 
 def _nll(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
@@ -474,7 +597,8 @@ def _nll(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
 
 def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``
-    [b, s] integer tensors, optional ``positions``); logits in f32.  With
+    [b, s] integer tensors, optional ``positions``, Whisper's
+    ``frames``); logits in f32.  With
     ``cfg.loss_chunk``, unembedding and the loss go one chunk of that
     many positions at a time, summed, as the JAX package's scan.  The
     MoE family differentiates through its dispatch (gathers, the
@@ -482,7 +606,8 @@ def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     (token, expert) pair gets no gradient, as in JAX."""
     labels = batch["labels"]
     x = forward(params, batch["tokens"], cfg,
-                positions=batch.get("positions"), return_hidden=True)
+                positions=batch.get("positions"), frames=batch.get("frames"),
+                return_hidden=True)
     if cfg.loss_chunk:
         b, s, _ = x.shape
         c = min(cfg.loss_chunk, s)
@@ -497,9 +622,9 @@ def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return torch.mean(_nll(params, x, labels, cfg))
 
 
-def prefill(params, tokens, cfg: ModelConfig, positions=None):
+def prefill(params, tokens, cfg: ModelConfig, positions=None, frames=None):
     """Prefill = full forward; returns last-position logits."""
-    return DenseLM(cfg, params).prefill(tokens, positions)
+    return DenseLM(cfg, params).prefill(tokens, positions, frames)
 
 
 def serve_step(params, cache: Dict, token, length: int, cfg: ModelConfig):
@@ -557,8 +682,33 @@ def _decode_zamba(params, layers, cache, x, length, cfg: ModelConfig):
     return x
 
 
+def _decode_whisper(params, layers, cache, x, length, cfg: ModelConfig):
+    """Whisper's decode step: the token plus its position's sinusoid,
+    then per layer self-attention against the cache (written at
+    ``length``), cross-attention of the one query row against
+    ``enc_out`` (its keys and values recomputed from ``enc_out`` in every
+    layer and step, as the JAX package does), the MLP."""
+    enc_out, eps = cache["enc_out"], cfg.norm_eps
+    x = x + _sinusoid_at(length, cfg.d_model, x.dtype, x.device)[None]
+    for i, p in enumerate(layers):
+        a = rms_norm(x, p["norm1"], eps)
+        a, _ = attention_decode(a, p["attn"], cfg,
+                                (cache["k"][i], cache["v"][i]), length)
+        x = x + a
+        cx = rms_norm(x, p["norm_x"], eps)
+        x = x + _cross_attention(cx[:, None], p["cross"], cfg, enc_out)[:, 0]
+        f = rms_norm(x, p["norm2"], eps)
+        x = x + mlp(f[:, None], p["ffn"], cfg.mlp_type)[:, 0]
+    return x
+
+
+# vlm decodes through the decoder path: ``attention_decode`` gives the
+# token one position on all three M-RoPE streams, as the JAX package
+# does, so a decode step equals the forward only where the forward's
+# streams agree (text-only positions)
 _DECODE = dict(dense=_decode_decoder, moe=_decode_decoder,
-               ssm=_decode_xlstm, hybrid=_decode_zamba)
+               vlm=_decode_decoder, ssm=_decode_xlstm, hybrid=_decode_zamba,
+               audio=_decode_whisper)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int,
@@ -567,8 +717,9 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int,
     MLA's compressed rows (``ckv``) or per-head keys and values; xLSTM's
     recurrent states (f32); Zamba2's conv windows (``dtype``), SSM states
     (f32) and the shared block's keys and values, one set an
-    application."""
-    _require_ported(cfg)
+    application; Whisper's self-attention keys and values and its encoder
+    output ``enc_out`` [batch, encoder_seq, d]."""
+    _check_family(cfg)
     L, hd, f32 = cfg.n_layers, cfg.resolved_head_dim, torch.float32
     if cfg.family == "ssm":
         G, M = L // cfg.slstm_every, cfg.slstm_every - 1
@@ -588,6 +739,9 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int,
         return dict(ckv=((L, batch, seq, cfg.kv_lora + cfg.qk_rope_dim),
                          dtype))
     shape = (L, batch, cfg.n_kv_heads, seq, hd)
+    if cfg.family == "audio":
+        return dict(k=(shape, dtype), v=(shape, dtype),
+                    enc_out=((batch, cfg.encoder_seq, cfg.d_model), dtype))
     return dict(k=(shape, dtype), v=(shape, dtype))
 
 

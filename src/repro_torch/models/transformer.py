@@ -33,9 +33,6 @@ __all__ = [
     "decoder_block_decode",
 ]
 
-_NOT_PORTED = "ROADMAP queue 1 item 15b.4 (the audio and VLM families)"
-
-
 def _heads(x, w, n, hd):
     """[b, s, d] @ [d, n·hd] -> [b, n, s, hd] (a transposed view)."""
     b, s, _ = x.shape

@@ -5,9 +5,12 @@ and recycle semantics.  A fixed pool of batch *slots* shares one KV
 cache; requests join free slots (prefill by teacher forcing on the
 decode path), finished sequences retire and free their slot.  Each
 iteration is one ``DenseLM.serve_step`` over every slot; the cache
-(per-head keys and values, MLA's compressed ``ckv`` rows, or the SSM
-and hybrid families' recurrent states) is written in place, and zeroed
-wholesale at a quiescent point, recurrent states included.
+(per-head keys and values, MLA's compressed ``ckv`` rows, the SSM and
+hybrid families' recurrent states, or Whisper's keys and values beside
+its encoder output ``enc_out``) is written in place, and zeroed
+wholesale at a quiescent point, recurrent states and ``enc_out``
+included.  As in the JAX package, the engine takes no frames: Whisper's
+``enc_out`` starts at zero, and a caller may fill it before ``run``.
 """
 from __future__ import annotations
 

@@ -665,6 +665,63 @@ def test_flash_attention_pads_head_dims_without_an_instance(card, dtype, atol,
         F32_ROW_RTOL if dtype == torch.float32 else BF16_ROW_RTOL)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-3),
+                                        (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("qs,ks", [
+    ((2, 20, 1500, 64), (2, 20, 1500, 64)),   # Whisper's encoder (MHA)
+    ((2, 20, 448, 64), (2, 20, 1500, 64)),    # cross-attention, prefill
+    ((4, 20, 1, 64), (4, 20, 1500, 64)),      # cross-attention, decode
+])
+def test_flash_attention_at_whisper_shapes(card, dtype, atol, qs, ks):
+    """Whisper's D 64 MHA at 20/20 heads, non-causal, over 1 500 frames,
+    q and k/v transposed views of [b, s, heads, 64] as the model's: one
+    launch, within the JAX package's tolerance of the plain version and
+    every row within ``F32_ROW_RTOL`` / ``BF16_ROW_RTOL``."""
+    g = torch.Generator(device=card).manual_seed(qs[2])
+    q = torch.randn((qs[0], qs[2], qs[1], 64), generator=g,
+                    device=card).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((ks[0], ks[2], ks[1], 64), generator=g,
+                        device=card).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=False)
+    assert got.dtype == dtype and got.shape == want.shape == qs
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert _worst_row_rel(got, want) <= (
+        F32_ROW_RTOL if dtype == torch.float32 else BF16_ROW_RTOL)
+
+
+def test_whisper_goes_through_the_kernel(card):
+    """A reduced Whisper on the card: a prefill launches once each
+    encoder layer and twice each decoder layer, a decode step once a
+    decoder layer (its cross-attention), and the decode path's logits
+    equal the prefill's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DenseLM, init_cache, init_params, reduced
+
+    cfg = reduced(get_config("whisper_large_v3"), n_layers=3)
+    gen = torch.Generator(card).manual_seed(0)
+    model = DenseLM(cfg, init_params(cfg, gen, card))
+    tokens = torch.randint(0, cfg.vocab, (2, 30), device=card)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=card) * 0.02
+    ops.reset_launch_counts()
+    last = model.prefill(tokens, frames=frames)
+    assert ops.launch_counts()["flash_attention"] == (
+        cfg.encoder_layers + 2 * cfg.n_layers)
+    cache = init_cache(cfg, 2, 30, card)
+    cache["enc_out"].copy_(model.encode(frames))
+    ops.reset_launch_counts()
+    for i in range(30):
+        logits, cache = model.serve_step(cache, tokens[:, i], i)
+    assert ops.launch_counts()["flash_attention"] == 30 * cfg.n_layers
+    torch.testing.assert_close(last, logits, rtol=0, atol=1e-4)
+
+
 def test_mla_prefill_goes_through_the_kernel(card):
     """A reduced DeepSeek-V2 prefill on the card (MLA's q/k of 48 dims, v
     of 32, padded to the D 64 instance): one launch per layer, and with

@@ -288,16 +288,12 @@ def test_config_and_reduced_match_jax(arch):
             want.is_moe, want.is_mla, want.is_recurrent)
     assert get_config(arch.replace("_", "-")) == get_config(arch)
     cfg = get_config(arch)
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        assert cfg.param_count() == jget(arch).param_count()
-        assert cfg.active_param_count() == jget(arch).active_param_count()
-        shapes = cache_specs(cfg, 2, 16)
-        jshapes = JM.cache_specs(jget(arch), 2, 16)
-        assert {k: s for k, (s, _) in shapes.items()} == {
-            k: tuple(v.shape) for k, v in jshapes.items()}
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cfg.param_count()
+    assert cfg.param_count() == jget(arch).param_count()
+    assert cfg.active_param_count() == jget(arch).active_param_count()
+    shapes = cache_specs(cfg, 2, 16)
+    jshapes = JM.cache_specs(jget(arch), 2, 16)
+    assert {k: s for k, (s, _) in shapes.items()} == {
+        k: tuple(v.shape) for k, v in jshapes.items()}
 
 
 def test_numpy_params_layout_and_distribution():
@@ -328,8 +324,14 @@ def test_init_params_follows_the_generator():
 
 # ------------------------------------------------------ refusals, CLI
 def test_other_families_and_devices_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        init_params(reduced(get_config("whisper_large_v3")), device="cpu")
+    """An unknown family raises ``ValueError``, as the JAX package's
+    ``param_specs`` does (every family of the ten configs is ported)."""
+    odd = dataclasses.replace(reduced(get_config("tinyllama_1_1b")),
+                              family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        init_params(odd, device="cpu")
+    with pytest.raises(ValueError, match="retnet"):
+        JM.abstract_params(odd)
     q = torch.zeros((1, 2, 8, 32), device="meta")
     with pytest.raises(ValueError, match="CPU tensors"):
         ops.flash_attention(q, q, q)
