@@ -251,7 +251,22 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    --arch whisper_large_v3 --batch 4 --prompt-len 16 --gen 16`` (full
    size) and ``--arch qwen2_vl_72b --reduced`` in their own processes.
    The goldens' numpy weights are drawn on the host thread of phases
-   14-15.
+   14-15.  Training: one gradient of Whisper-large-v3 at full width and
+   depth (b 2 × 448 tokens over 1 500 seeded frames) and of Qwen2-VL-72B
+   at full width, depth 1 (b 2 × 2 048 with the image block's
+   positions), f32, remat ``full`` (192 and 2 launches: every attention
+   forward and recomputed), each leaf held to the plain route's within
+   ``TRAIN_GRAD_RTOL`` and to remat ``none``'s; beside them ``python -m
+   repro_torch.launch.train --arch whisper_large_v3|qwen2_vl_72b
+   --reduced`` in their own processes, each loss falling.
+17. lm-mesh — the LM distribution layer.  A world-1 NCCL group:
+   ``make_local_mesh`` (1, 1); ``remesh`` of TinyLlama-1.1B's full-width
+   f32 parameters and AdamW state onto it, each ``DTensor`` leaf equal
+   to its input; a train step from the re-placed state equal to the
+   plain step bit for bit.  Beside it ``python -m
+   repro_torch.launch.dryrun --arch tinyllama_1_1b`` (fake groups of 256
+   and 512 ranks, the CPU): train_4k's per-device argument bytes on
+   16×16 and 2×16×16 equal to JAX's (``LM_MESH``).
 
 Launch counts are set to 0 before each main-path run and read after it.
 The last lines are the ``kernels`` JSON, the card's name and power limit
@@ -2199,6 +2214,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
     # numpy normals) drawn on one host thread from here on, beside phases
     # 12-15
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    dry = None
     try:
         moe_tree = pool.submit(golden_tree, moe_golden,
                                moe_golden_config(moe_golden))
@@ -2237,12 +2253,24 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                 ssm_golden, dev, launches, trees=ssm_trees)
             del ssm_trees
 
+        # phase 17's dry-run (CPU only) in its own process from here on
+        dry = start_dryrun(tmp)
         with Phase("16-audio-vlm"):
             rows["flash_attention"]["audio_vlm"], av_info = phase_audio_vlm(
                 av_golden, dev, launches, trees=av_trees)
             del av_trees
+            rows["flash_attention"]["training_launches"]["audio_vlm"] = rows[
+                "flash_attention"]["audio_vlm"]["launches"]["training"]
+    except BaseException:
+        if dry is not None and dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        raise
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+
+    with Phase("17-lm-mesh"):
+        mesh_info = phase_lm_mesh(dev, tmp, dry=dry)
 
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
@@ -2272,7 +2300,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                         traced_tip_1m=trace_info, stream=stream_info,
                         multitenant=mt_info, distributed=dist_info,
                         train=train_info, moe=moe_info, ssm=ssm_info,
-                        audio_vlm=av_info)))
+                        audio_vlm=av_info, lm_mesh=mesh_info)))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -4255,15 +4283,16 @@ def grads_against(cfg, params, batch, against=None):
     return loss.item(), [r.item() for r in rel]
 
 
-def moe_train_grads(cfg, spec, dev, launches) -> dict:
+def model_train_grads(cfg, spec, dev, launches, extra=None) -> dict:
     """``cfg`` (full width, cut in depth), f32, random weights: one
-    gradient of ``train_loss`` at b ``batch`` × s ``seq`` through the
-    kernel route (remat ``full``: ``flash_attention`` launches twice a
-    layer, the forward and the recompute), held leaf by leaf to the
-    plain route's (``ref.flash_attention_ref`` under autograd) within
-    ``TRAIN_GRAD_RTOL`` and to remat ``none``'s (one launch a layer)
-    within ``MOE_REMAT_RTOL``.  Returns the numbers and the parameters
-    (for ``moe_layer_grads``)."""
+    gradient of ``train_loss`` at b ``batch`` × s ``seq`` (plus
+    ``extra(b, s, gen)``'s inputs: Whisper's frames, M-RoPE positions)
+    through the kernel route (remat ``full``: ``flash_attention``
+    launches twice an attention, the forward and the recompute), held
+    leaf by leaf to the plain route's (``ref.flash_attention_ref`` under
+    autograd) within ``TRAIN_GRAD_RTOL`` and to remat ``none``'s (one
+    launch an attention) within ``MOE_REMAT_RTOL``.  Returns the numbers
+    and the parameters (for ``moe_layer_grads``)."""
     import dataclasses
     from unittest import mock
 
@@ -4281,6 +4310,8 @@ def moe_train_grads(cfg, spec, dev, launches) -> dict:
     b, s = spec["batch"], spec["seq"]
     ids = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device=dev)
     batch = dict(tokens=ids[:, :-1], labels=ids[:, 1:])
+    if extra is not None:
+        batch.update(extra(b, s, gen))
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4288,25 +4319,35 @@ def moe_train_grads(cfg, spec, dev, launches) -> dict:
     loss, g = grads_against(cfg, params, batch)
     sync(dev)
     info = dict(params=sum(p.numel() for p in g), seconds=time.perf_counter()
-                - t0, capacity=capacity(cfg, s), loss=loss,
+                - t0, capacity=capacity(cfg, s) if cfg.is_moe else None,
+                loss=loss,
                 launches_full=ops.launch_counts()["flash_attention"],
                 peak_bytes=torch.cuda.max_memory_allocated() if cuda else None)
     plain = lambda q, k, v, causal=True, offset=None: ref.flash_attention_ref(
         q, k, v, causal=causal, offset=offset)
+    t0 = time.perf_counter()
     with mock.patch.object(layers.ops, "flash_attention", plain):
         info["loss_plain"], rel = grads_against(cfg, params, batch, g)
+    sync(dev)
+    info["seconds_plain"] = time.perf_counter() - t0
     info["plain_worst_rel_l2"] = max(rel)
     ops.reset_launch_counts()
+    t0 = time.perf_counter()
     info["loss_remat_none"], rel = grads_against(
         dataclasses.replace(cfg, remat_policy="none"), params, batch, g)
+    sync(dev)
+    info["seconds_remat_none"] = time.perf_counter() - t0
     info["remat_worst_rel_l2"] = max(rel)
     info["launches_none"] = ops.launch_counts()["flash_attention"]
     if cuda:
         info["peak_bytes_all"] = torch.cuda.max_memory_allocated()
     del g
     log(f"[smoke]   {cfg.name} training, full width, depth {n_layers}, f32, "
-        f"b {b} × s {s} (C {info['capacity']}): {info['params']} parameters; "
-        f"the gradient in {info['seconds']:.2f} s, loss {loss:.5f} (plain "
+        f"b {b} × s {s} (C {info['capacity']}, inputs {sorted(batch)}): "
+        f"{info['params']} parameters; "
+        f"the gradient in {info['seconds']:.2f} s (plain route "
+        f"{info['seconds_plain']:.2f}, remat none "
+        f"{info['seconds_remat_none']:.2f}), loss {loss:.5f} (plain "
         f"{info['loss_plain']:.5f}, remat none "
         f"{info['loss_remat_none']:.5f}); worst leaf vs the plain route "
         f"{info['plain_worst_rel_l2']:.3e} (limit {TRAIN_GRAD_RTOL}), remat "
@@ -4316,9 +4357,10 @@ def moe_train_grads(cfg, spec, dev, launches) -> dict:
         f"{info['peak_bytes']} B with one gradient set, "
         f"{info.get('peak_bytes_all')} B over the three")
     if cuda:
+        calls = _av_calls(cfg)
         expect(f"{cfg.name} training", "flash_attention launches",
                (info["launches_full"], info["launches_none"]),
-               (2 * n_layers, n_layers))
+               (2 * calls, calls))
         launches["flash_attention"] = (launches.get("flash_attention", 0)
                                        + info["launches_full"]
                                        + info["launches_none"])
@@ -4447,8 +4489,8 @@ def moe_training(spec, dev, launches) -> dict:
                 dataclasses.replace(get_config(arch), n_layers=n)
                 for arch, n in spec["models"]]:
             t1 = time.perf_counter()
-            info[cfg.name], cfg, params = moe_train_grads(cfg, spec, dev,
-                                                          launches)
+            info[cfg.name], cfg, params = model_train_grads(cfg, spec, dev,
+                                                            launches)
             if cfg.is_mla:
                 info[cfg.name]["moe_layer"] = moe_layer_grads(
                     cfg, params, spec["seq"], spec["layer_seed"], dev)
@@ -4568,12 +4610,14 @@ SSM = dict(
     attention=dict(label="zamba2-7b shared attention prefill", heads=32,
                    seq=2048, dqk=112, dv=112, check_batch=1, time_batch=4,
                    reps=10),
+    # decode against forward over the first 128 positions at stride 8 (17
+    # positions), which keeps the script inside its time limit
     xlstm=dict(arch="xlstm_1_3b", batch=4, seq=2048, seed=0, check_batch=2,
-               check_seq=256, stride=16,
+               check_seq=128, stride=8,
                # one mLSTM layer's chunked recurrence: 4 heads of 1 024
                recurrence=dict(heads=4, dk=1024, dv=1024, seq=2048)),
     zamba=dict(arch="zamba2_7b", batch=4, seq=2048, seed=1, check_batch=2,
-               check_seq=256, stride=16,
+               check_seq=128, stride=8,
                # one Mamba2 layer's: 112 heads, state 64, head dim 64
                recurrence=dict(heads=112, dk=64, dv=64, seq=2048),
                serve=dict(slots=4, requests=8, prompt=(8, 32), max_new=16,
@@ -4902,6 +4946,19 @@ AUDIO_VLM = dict(
     cli=(["--arch", "whisper_large_v3", "--batch", "4", "--prompt-len", "16",
           "--gen", "16"],
          ["--arch", "qwen2_vl_72b", "--reduced"]),
+    # training: one gradient of Whisper at full width and depth (b 2 × 448
+    # tokens over 1 500 frames) and of Qwen2-VL at full width, depth 1
+    # (its f32 weights and gradients at depth 1 are 27 GB), each against
+    # the plain route and remat none; the reduced train CLI of each in
+    # its own process beside them
+    train=dict(
+        models=(dict(arch="whisper_large_v3", batch=2, seq=448, seed=5),
+                dict(arch="qwen2_vl_72b", n_layers=1, batch=2, seq=2048,
+                     seed=6, image=dict(start=512, grid=(32, 32)))),
+        cli=[["--arch", "whisper_large_v3", "--reduced"],
+             ["--arch", "qwen2_vl_72b", "--reduced"]],
+        cli_flags=["--steps", "8", "--batch", "4", "--seq", "128",
+                   "--log-every", "1"]),
 )
 
 
@@ -5181,12 +5238,42 @@ def av_golden_configs(golden) -> dict:
         for arch, rec in golden.items()}
 
 
+def av_training(spec, dev, launches, procs) -> dict:
+    """Phase 16's training: each model's full-width gradient
+    (``model_train_grads``: Whisper with seeded frames ``randn · 0.02``,
+    Qwen2-VL with an image block's M-RoPE positions), the parameters
+    freed before the next model loads, beside the reduced train CLIs'
+    processes ``procs`` (``start_train_cli``), then those checked."""
+    import torch
+
+    info = {}
+    t0 = time.perf_counter()
+    for m in spec["models"]:
+        t1 = time.perf_counter()
+        cfg = _av_config(m)
+
+        def extra(b, s, gen, cfg=cfg, m=m):
+            if cfg.family == "audio":
+                return dict(frames=torch.randn(
+                    (b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                    device=dev) * 0.02)
+            return dict(positions=torch.from_numpy(mrope_image_positions(
+                b, s, m["image"]["start"], m["image"]["grid"])).to(dev))
+        info[cfg.name], _, params = model_train_grads(cfg, m, dev, launches,
+                                                      extra)
+        del params
+        _free(dev)
+        info[cfg.name]["step_s"] = time.perf_counter() - t1
+    info["cli"] = finish_train_cli(procs, t0)
+    return info
+
+
 def phase_audio_vlm(golden, dev, launches, spec=AUDIO_VLM, golden_cfgs=None,
                     trees=None) -> tuple:
-    """Phase 16; returns (the flash_attention numbers at its shapes, the
-    rest).  The goldens' numpy weights are ``trees`` (futures by arch,
-    started early by the caller) or drawn here in a thread beside the
-    card's work."""
+    """Phase 16; returns (the flash_attention numbers at its shapes, with
+    the launches of its serving and training runs; the rest).  The
+    goldens' numpy weights are ``trees`` (futures by arch, started early
+    by the caller) or drawn here in a thread beside the card's work."""
     import concurrent.futures
 
     golden_cfgs = golden_cfgs or av_golden_configs(golden)
@@ -5223,30 +5310,190 @@ def phase_audio_vlm(golden, dev, launches, spec=AUDIO_VLM, golden_cfgs=None,
         seconds["qwen_bf16"] = time.perf_counter() - t0
         row["launches"]["qwen"] = launches.get("flash_attention", 0) - launched
 
-        # ---- the goldens at full width, cut in depth
-        info["golden"] = {}
-        for arch, cfg in golden_cfgs.items():
-            t0 = time.perf_counter()
-            tree = trees[arch].result()
-            seconds[f"{arch}_golden_wait"] = time.perf_counter() - t0
-            info["golden"][arch] = hold_av_golden(golden[arch], cfg, tree, dev)
-            del tree
-            _free(dev)
-            seconds[f"{arch}_golden"] = time.perf_counter() - t0
-            log(f"[smoke]   golden {cfg.name} (depth {cfg.n_layers}, full "
-                f"width): held to the JAX package's logits, max abs errs "
-                f"{info['golden'][arch]}")
+        # ---- the serving and the reduced train CLIs, each in its own
+        # process, beside the goldens and the gradients (after the timed
+        # runs above)
+        clis = concurrent.futures.ThreadPoolExecutor(
+            max_workers=len(spec["cli"]))
+        procs = start_train_cli(spec["train"]["cli"],
+                                spec["train"]["cli_flags"], dev)
+        try:
+            served = [clis.submit(serve_cli, args, dev)
+                      for args in spec["cli"]]
 
-    # ---- the CLIs, each in its own process
-    info["cli"] = []
-    for args in spec["cli"]:
-        t0 = time.perf_counter()
-        info["cli"].append(serve_cli(args, dev)[1])
-        seconds[f"cli {args[1]}"] = time.perf_counter() - t0
+            # ---- the goldens at full width, cut in depth
+            info["golden"] = {}
+            for arch, cfg in golden_cfgs.items():
+                t0 = time.perf_counter()
+                tree = trees[arch].result()
+                seconds[f"{arch}_golden_wait"] = time.perf_counter() - t0
+                info["golden"][arch] = hold_av_golden(golden[arch], cfg,
+                                                      tree, dev)
+                del tree
+                _free(dev)
+                seconds[f"{arch}_golden"] = time.perf_counter() - t0
+                log(f"[smoke]   golden {cfg.name} (depth {cfg.n_layers}, "
+                    f"full width): held to the JAX package's logits, max abs "
+                    f"errs {info['golden'][arch]}")
+
+            # ---- training: the gradients at full width
+            launched = launches.get("flash_attention", 0)
+            t0 = time.perf_counter()
+            info["train"] = av_training(spec["train"], dev, launches, procs)
+            seconds["train"] = time.perf_counter() - t0
+            row["launches"]["training"] = (launches.get("flash_attention", 0)
+                                           - launched)
+            info["cli"] = []
+            for args, fut in zip(spec["cli"], served):
+                seconds[f"cli {args[1]}"], lines = fut.result()
+                info["cli"].append(lines)
+        finally:
+            clis.shutdown(wait=True)
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     info["seconds"] = seconds
     log(f"[smoke]   phase 16 seconds by step: {seconds}")
     return row, info
 
+
+
+# ---------------------------------------------------------------------
+# phase 17: the LM distribution layer (meshes, shardings, remesh, the
+# dry-run)
+# ---------------------------------------------------------------------
+LM_MESH = dict(
+    arch="tinyllama_1_1b", seed=7, batch=1, seq=512, lr=1e-2,
+    dryrun=["--arch", "tinyllama_1_1b"],
+    # train_4k's per-device argument bytes on 16×16 and 2×16×16: JAX's
+    # Σ NamedSharding.shard_shape × itemsize over what its dry-run places
+    # (tests/test_torch_dryrun.py holds these to JAX)
+    argument_bytes={"16x16": 44412932, "2x16x16": 44150788},
+)
+
+
+def start_dryrun(tmp, spec=LM_MESH) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` over ``spec["dryrun"]`` in
+    its own process (CPU only), started now; returns (the process, its
+    ``--out`` JSON) for ``phase_lm_mesh``."""
+    out = os.path.join(tmp, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *spec["dryrun"],
+         "--out", out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), out
+
+
+def phase_lm_mesh(dev, tmp, spec=LM_MESH, dry=None) -> dict:
+    """Phase 17.  In a world-1 process group (NCCL on the card, gloo on
+    the CPU): ``make_local_mesh`` is (1, 1) ``("data", "model")``;
+    ``remesh`` of the full-width f32 parameters and ``adamw_init`` state
+    onto it gives ``DTensor``s each ``torch.equal`` to its input; a train
+    step from the re-placed state (their local shards) equals the step
+    from the plain tensors, bit for bit.  Beside it, the dry-run CLI in
+    its own process over every shape of ``spec["dryrun"]``'s arch on both
+    production meshes (fake groups of 256 and 512 ranks, the CPU;
+    ``dry``: ``start_dryrun``'s, started early by the caller): no cell in
+    error, train_4k's per-device argument bytes JAX's."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params, logical_axes
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step, remesh)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    dry, out = dry or start_dryrun(tmp, spec)
+    info = {}
+    cuda = torch.device(dev).type == "cuda"
+    try:
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"file://{tmp}/mesh-rdzv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(device=dev)
+            sync(dev)
+            info["group_s"] = time.perf_counter() - t0
+            expect("local mesh", "shape and names",
+                   (tuple(mesh.shape), mesh.mesh_dim_names),
+                   ((1, 1), ("data", "model")))
+            cfg = spec.get("cfg") or get_config(spec["arch"])
+            gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+            params = init_params(cfg, gen, dev, torch.float32)
+            opt = adamw_init(params)
+            flat = lambda p, o: tree_leaves(p) + tree_leaves(o)
+            sync(dev)
+            t1 = time.perf_counter()
+            p1, o1 = remesh(params, opt, logical_axes(cfg), mesh)
+            sync(dev)
+            info["remesh_s"] = time.perf_counter() - t1
+            info["leaves"] = len(flat(p1, o1))
+            info["params"] = sum(x.numel() for x in tree_leaves(params))
+            for a, b in zip(flat(params, opt), flat(p1, o1), strict=True):
+                if not (isinstance(b, DTensor) and b.device_mesh is mesh
+                        and torch.equal(b.to_local(), a)):
+                    raise AssertionError("remesh: a leaf is not its input "
+                                         "placed on the local mesh")
+            ids = torch.randint(0, cfg.vocab, (spec["batch"], spec["seq"] + 1),
+                                generator=gen, device=dev)
+            batch = dict(tokens=ids[:, :-1], labels=ids[:, 1:])
+            step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+                lr=spec["lr"], warmup_steps=1)))
+            local = lambda t: tree_map(lambda d: d.to_local(), t)
+            t1 = time.perf_counter()
+            got = step(local(p1), type(o1)(*map(local, o1)), batch)
+            sync(dev)
+            info["step_s"] = time.perf_counter() - t1
+            del p1, o1
+            want = step(params, opt, batch)
+            del params, opt
+            same = all(torch.equal(a, b) for a, b in zip(
+                flat(*got[:2]), flat(*want[:2]), strict=True))
+            info["loss"] = [got[2]["loss"].item(), want[2]["loss"].item()]
+            del got, want
+            _free(dev)
+            if not (same and info["loss"][0] == info["loss"][1]):
+                raise AssertionError(f"a step from the re-placed state differs "
+                                     f"from the plain step: {info['loss']}")
+        finally:
+            dist.destroy_process_group()
+        t1 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=300)
+        info["dryrun_wait_s"] = time.perf_counter() - t1
+        if dry.returncode != 0:
+            raise AssertionError(f"launch.dryrun exited {dry.returncode}:\n"
+                                 f"{stdout}\n{stderr}")
+        with open(out) as f:
+            recs = json.load(f)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    info["dryrun"] = {f"{r['shape']} {'2x16x16' if r['multi_pod'] else '16x16'}":
+                      r.get("mem", {}).get("argument_bytes", r["status"])
+                      for r in recs}
+    bad = [r for r in recs if r["status"] not in ("ok", "skipped")]
+    got = {mesh: info["dryrun"][f"train_4k {mesh}"]
+           for mesh in spec["argument_bytes"]}
+    info["seconds"] = time.perf_counter() - t0
+    log(f"[smoke]   {cfg.name} at full width ({info['params']} parameters, "
+        f"{info['leaves']} leaves with AdamW's moments) remeshed onto the "
+        f"local (1, 1) mesh in {info['remesh_s']:.3f} s, every leaf equal; "
+        f"a train step from it at b {spec['batch']} × s {spec['seq']} in "
+        f"{info['step_s']:.3f} s equal to the plain step (loss "
+        f"{info['loss'][0]:.6f}); the dry-run's per-device argument bytes "
+        f"{info['dryrun']}; phase 17 {info['seconds']:.1f} s (the group and "
+        f"mesh {info['group_s']:.1f}, waiting for the dry-run "
+        f"{info['dryrun_wait_s']:.1f})")
+    if bad:
+        raise AssertionError(f"dry-run cells in error: {bad}")
+    expect("dry-run train_4k", "argument bytes", got, spec["argument_bytes"])
+    return info
 
 if __name__ == "__main__":
     sys.exit(main())

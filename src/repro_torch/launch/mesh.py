@@ -1,19 +1,21 @@
-"""Peel meshes on ``torch.distributed`` (the port of the JAX package's
-``launch/mesh.py``, peel half).
+"""Meshes on ``torch.distributed`` — the port of the JAX package's
+``launch/mesh.py``.
 
 A JAX ``Mesh`` with named axes becomes a
 ``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``:
-``("peel",)`` for the flat mesh, ``("grp", "loc")`` for the two-stage
-one.  Both need a default process group: :func:`init_peel_group` opens
-it from the ``torchrun`` environment (``python -m
-torch.distributed.run``), or the caller opens one itself.  Nothing here
-runs at import.
-
-The LM meshes (``make_production_mesh``, ``make_local_mesh``) are not
-ported yet (ROADMAP queue 1, item 15b).
+``("peel",)`` for the flat peel mesh, ``("grp", "loc")`` for the
+two-stage one, and the LM meshes ``("data", "model")`` (16 × 16, one
+pod) and ``("pod", "data", "model")`` (2 × 16 × 16) that the sharding
+rules (``sharding.partition``) resolve against.  Each needs a default
+process group: :func:`init_peel_group` opens it from the ``torchrun``
+environment (``python -m torch.distributed.run``), or the caller opens
+one itself (the LM dry-run: a fake group of 256 or 512 ranks).  Nothing
+here runs at import.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 from typing import Optional
 
@@ -21,10 +23,19 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "PRODUCTION_MESHES",
+    "fake_group",
     "init_peel_group",
+    "make_local_mesh",
     "make_peel_mesh",
     "make_peel_mesh_2d",
+    "make_production_mesh",
 ]
+
+# (shape, axis names) of the LM production meshes, by multi_pod: 256
+# chips as one pod, 512 as two
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def init_peel_group(device: str = "cuda", backend: Optional[str] = None
@@ -102,3 +113,57 @@ def make_peel_mesh_2d(n_devices: Optional[int] = None,
     if n % groups:
         raise ValueError(f"groups={groups} does not divide n={n}")
     return _mesh(device, (groups, n // groups), ("grp", "loc"))
+
+
+def _world(what: str) -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} needs a default process group: open one "
+                           "first (init_peel_group, or "
+                           "torch.distributed.init_process_group)")
+    return dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """16×16 ``("data", "model")`` single pod (256 ranks) or 2×16×16
+    ``("pod", "data", "model")`` two-pod (512 ranks); the process group
+    must have exactly that many ranks."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    world = _world("make_production_mesh")
+    if world != math.prod(shape):
+        raise ValueError(f"the {'two-pod' if multi_pod else 'one-pod'} mesh "
+                         f"{shape} takes {math.prod(shape)} ranks; the "
+                         f"process group has {world}")
+    return _mesh(device, shape, names)
+
+
+def _local_mesh_shape(n: int) -> tuple:
+    """The JAX package's local mesh for n devices: (1, 1) for one, else
+    (n // m, m) with m = 2 if n is even (1 if odd)."""
+    if n == 1:
+        return (1, 1)
+    m = 2 if n % 2 == 0 else 1
+    return (n // m, m)
+
+
+def make_local_mesh(device: str = "cuda"):
+    """Whatever this job has: a ``("data", "model")`` mesh over every rank
+    of the default process group (``_local_mesh_shape`` of its size)."""
+    n = _world("make_local_mesh")
+    return _mesh(device, _local_mesh_shape(n), ("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_group(n: int):
+    """A fake process group of ``n`` ranks, this process rank 0, for the
+    dry-runs: meshes and ``DTensor`` placement run, collectives complete
+    and move no data."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a dry-run opens its own fake process group, "
+                           "and one is already open")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

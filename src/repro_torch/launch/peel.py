@@ -405,14 +405,13 @@ def _dryrun(n: int = 512) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from ..core import csr, peel, peelspec
     from ..core import distributed as D
     from ..core.beindex import build_beindex
     from ..core.graph import powerlaw_bipartite
     from ..kernels import ops as kops
-    from .mesh import make_peel_mesh, make_peel_mesh_2d
+    from .mesh import fake_group, make_peel_mesh, make_peel_mesh_2d
 
     def counts(fn) -> dict:
         D.reset_collective_counts()
@@ -424,8 +423,7 @@ def _dryrun(n: int = 512) -> int:
             raise AssertionError(f"{label}: {got}, want {want}")
         print(f"[peel-dryrun] {label}: {got} ✓")
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
-    try:
+    with fake_group(n):
         dev = torch.device("cpu")
         mesh = make_peel_mesh(n, device="cpu")
         g = powerlaw_bipartite(400, 200, 2000, seed=1)
@@ -539,8 +537,6 @@ def _dryrun(n: int = 512) -> int:
               len(fused.calls), chunk * -(-int(rounds.max()) // chunk))
         if not np.array_equal(theta, res_c.theta):
             raise AssertionError("fused wing FD: θ differs")
-    finally:
-        dist.destroy_process_group()
     print("[peel-dryrun] all structural checks passed")
     return 0
 

@@ -49,6 +49,8 @@ from ..kernels.ref import matmul_f32
 __all__ = [
     "PSpec",
     "param_specs",
+    "abstract_params",
+    "logical_axes",
     "init_params",
     "flat_items",
     "LayerTree",
@@ -59,6 +61,7 @@ __all__ = [
     "serve_step",
     "cache_specs",
     "init_cache",
+    "input_specs",
     "SHAPE_SETS",
     "shape_applicable",
 ]
@@ -66,6 +69,7 @@ __all__ = [
 
 class PSpec(NamedTuple):
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axes, one a dim
     init: str = "normal"  # normal | ones | zeros | a_log
 
 
@@ -79,49 +83,65 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 # =====================================================================
-# Parameter specs (the JAX package's shapes and key order, without
-# sharding axes)
+# Parameter specs: the JAX package's shapes, logical axes (resolved to
+# mesh axes by ``sharding.partition``) and key order
 # =====================================================================
+_LED = ("layers", "embed", "heads")
+
+
 def _attn_specs(cfg: ModelConfig, L: int, cross: bool = False) -> Dict:
     d = cfg.d_model
     if cfg.is_mla and not cross:
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        return dict(wq=PSpec((L, d, cfg.n_heads * (dn + dr))),
-                    kv_down=PSpec((L, d, cfg.kv_lora + dr)),
-                    k_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dn)),
-                    v_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dv)),
-                    wo=PSpec((L, cfg.n_heads * dv, d)))
+        return dict(
+            wq=PSpec((L, d, cfg.n_heads * (dn + dr)), _LED),
+            kv_down=PSpec((L, d, cfg.kv_lora + dr), ("layers", "embed", None)),
+            k_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dn),
+                       ("layers", None, "heads")),
+            v_up=PSpec((L, cfg.kv_lora, cfg.n_heads * dv),
+                       ("layers", None, "heads")),
+            wo=PSpec((L, cfg.n_heads * dv, d), ("layers", "heads", "embed")))
     hd = cfg.resolved_head_dim
-    return dict(wq=PSpec((L, d, cfg.n_heads * hd)),
-                wk=PSpec((L, d, cfg.n_kv_heads * hd)),
-                wv=PSpec((L, d, cfg.n_kv_heads * hd)),
-                wo=PSpec((L, cfg.n_heads * hd, d)))
+    kv = ("layers", "embed", "kv")
+    return dict(wq=PSpec((L, d, cfg.n_heads * hd), _LED),
+                wk=PSpec((L, d, cfg.n_kv_heads * hd), kv),
+                wv=PSpec((L, d, cfg.n_kv_heads * hd), kv),
+                wo=PSpec((L, cfg.n_heads * hd, d), ("layers", "heads", "embed")))
 
 
 def _ffn_specs(cfg: ModelConfig, L: int) -> Dict:
     d = cfg.d_model
+    up, down = ("layers", "embed", "mlp"), ("layers", "mlp", "embed")
     if cfg.is_moe:
         E, fe = cfg.n_experts, cfg.d_ff_expert
-        out: Dict[str, Any] = dict(router=PSpec((L, d, E)),
-                                   we1=PSpec((L, E, d, fe)),
-                                   we3=PSpec((L, E, d, fe)),
-                                   we2=PSpec((L, E, fe, d)))
+        ex_up = ("layers", "expert", "embed", None)
+        out: Dict[str, Any] = dict(
+            router=PSpec((L, d, E), ("layers", "embed", None)),
+            we1=PSpec((L, E, d, fe), ex_up),
+            we3=PSpec((L, E, d, fe), ex_up),
+            we2=PSpec((L, E, fe, d), ("layers", "expert", None, "embed")))
         if cfg.n_shared_experts:
             fs = fe * cfg.n_shared_experts
-            out["shared"] = dict(w1=PSpec((L, d, fs)), w3=PSpec((L, d, fs)),
-                                 w2=PSpec((L, fs, d)))
+            out["shared"] = dict(w1=PSpec((L, d, fs), up),
+                                 w3=PSpec((L, d, fs), up),
+                                 w2=PSpec((L, fs, d), down))
         return out
     ff = cfg.d_ff
-    out = dict(w1=PSpec((L, d, ff)), w2=PSpec((L, ff, d)))
+    out = dict(w1=PSpec((L, d, ff), up), w2=PSpec((L, ff, d), down))
     if cfg.mlp_type in ("swiglu", "geglu"):
-        out["w3"] = PSpec((L, d, ff))
+        out["w3"] = PSpec((L, d, ff), up)
     return out
+
+
+def _norm(*lead: int) -> PSpec:
+    """A norm's scale: ones, its stacked axes ``layers``."""
+    return PSpec(lead, ("layers",) * (len(lead) - 1) + (None,), "ones")
 
 
 def _decoder_block_specs(cfg: ModelConfig, L: int) -> Dict:
     d = cfg.d_model
-    return dict(norm1=PSpec((L, d), "ones"), attn=_attn_specs(cfg, L),
-                norm2=PSpec((L, d), "ones"), ffn=_ffn_specs(cfg, L))
+    return dict(norm1=_norm(L, d), attn=_attn_specs(cfg, L),
+                norm2=_norm(L, d), ffn=_ffn_specs(cfg, L))
 
 
 def _mamba_specs(cfg: ModelConfig, L: int) -> Dict:
@@ -129,13 +149,15 @@ def _mamba_specs(cfg: ModelConfig, L: int) -> Dict:
     d_inner = cfg.ssm_expand * d
     nh = d_inner // 64                      # mamba2 head dim 64
     d_in = 2 * d_inner + 2 * cfg.ssm_state + nh
-    return dict(norm=PSpec((L, d), "ones"),
-                in_proj=PSpec((L, d, d_in)),
-                conv_w=PSpec((L, cfg.ssm_conv, d_inner)),
-                A_log=PSpec((L, nh), "a_log"),
-                dt_bias=PSpec((L, nh), "zeros"),
-                D=PSpec((L, nh), "ones"),
-                out_proj=PSpec((L, d_inner, d)))
+    per_head = ("layers", None)
+    return dict(norm=_norm(L, d),
+                in_proj=PSpec((L, d, d_in), _LED),
+                conv_w=PSpec((L, cfg.ssm_conv, d_inner),
+                             ("layers", None, "heads")),
+                A_log=PSpec((L, nh), per_head, "a_log"),
+                dt_bias=PSpec((L, nh), per_head, "zeros"),
+                D=PSpec((L, nh), per_head, "ones"),
+                out_proj=PSpec((L, d_inner, d), ("layers", "heads", "embed")))
 
 
 def _xlstm_specs(cfg: ModelConfig) -> Dict:
@@ -145,27 +167,29 @@ def _xlstm_specs(cfg: ModelConfig) -> Dict:
     di = cfg.lstm_proj_factor * d
     nh = cfg.n_heads
     dh2 = d // nh
+    LL = ("layers", "layers")
     return dict(
-        mlstm=dict(norm=PSpec((G, M, d), "ones"),
-                   up_proj=PSpec((G, M, d, 2 * di)),
-                   wq=PSpec((G, M, di, di)),
-                   wk=PSpec((G, M, di, di)),
-                   wv=PSpec((G, M, di, di)),
-                   wg=PSpec((G, M, di, 2 * nh)),
-                   down_proj=PSpec((G, M, di, d))),
-        slstm=dict(norm=PSpec((G, d), "ones"),
-                   W=PSpec((G, d, 4 * nh * dh2)),
-                   R=PSpec((G, nh, dh2, 4 * dh2)),
-                   out=PSpec((G, nh * dh2, d))))
+        mlstm=dict(norm=_norm(G, M, d),
+                   up_proj=PSpec((G, M, d, 2 * di), LL + ("embed", "heads")),
+                   wq=PSpec((G, M, di, di), LL + (None, "heads")),
+                   wk=PSpec((G, M, di, di), LL + (None, "heads")),
+                   wv=PSpec((G, M, di, di), LL + (None, "heads")),
+                   wg=PSpec((G, M, di, 2 * nh), LL + ("heads", None)),
+                   down_proj=PSpec((G, M, di, d), LL + ("heads", "embed"))),
+        slstm=dict(norm=_norm(G, d),
+                   W=PSpec((G, d, 4 * nh * dh2), _LED),
+                   R=PSpec((G, nh, dh2, 4 * dh2), ("layers", "kv", None, None)),
+                   out=PSpec((G, nh * dh2, d), ("layers", "heads", "embed"))))
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
     _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
-    specs: Dict[str, Any] = dict(embed=PSpec((cfg.vocab, d)),
-                                 final_norm=PSpec((d,), "ones"))
+    specs: Dict[str, Any] = dict(embed=PSpec((cfg.vocab, d),
+                                             ("vocab", "embed")),
+                                 final_norm=_norm(d))
     if not cfg.tie_embeddings:
-        specs["lm_head"] = PSpec((d, cfg.vocab))
+        specs["lm_head"] = PSpec((d, cfg.vocab), ("embed", "vocab"))
     if cfg.family in ("dense", "moe", "vlm"):
         specs["blocks"] = _decoder_block_specs(cfg, L)
     elif cfg.family == "ssm":
@@ -173,19 +197,20 @@ def param_specs(cfg: ModelConfig) -> Dict:
     elif cfg.family == "audio":  # whisper enc-dec
         specs["enc_blocks"] = _decoder_block_specs(cfg, cfg.encoder_layers)
         dec = _decoder_block_specs(cfg, L)
-        dec["norm_x"] = PSpec((L, d), "ones")
+        dec["norm_x"] = _norm(L, d)
         dec["cross"] = _attn_specs(cfg, L, cross=True)
         specs["dec_blocks"] = dec
-        specs["enc_norm"] = PSpec((d,), "ones")
+        specs["enc_norm"] = _norm(d)
     else:  # hybrid: the shared block is dense GQA whatever cfg says
         specs["blocks"] = _mamba_specs(cfg, L)
         shared = dataclasses.replace(cfg, kv_lora=0, n_experts=0)
 
         def one(tree):
-            return {k: PSpec(v.shape[1:], v.init) for k, v in tree.items()}
-        specs["shared_attn"] = dict(norm1=PSpec((d,), "ones"),
+            return {k: PSpec(v.shape[1:], v.axes[1:], v.init)
+                    for k, v in tree.items()}
+        specs["shared_attn"] = dict(norm1=_norm(d),
                                     attn=one(_attn_specs(shared, 1)),
-                                    norm2=PSpec((d,), "ones"),
+                                    norm2=_norm(d),
                                     ffn=one(_ffn_specs(shared, 1)))
     return specs
 
@@ -196,6 +221,25 @@ def flat_items(tree, prefix=""):
             yield from flat_items(v, f"{prefix}.{k}" if prefix else k)
     else:
         yield prefix, tree
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
+    """The parameter tree as ``device="meta"`` tensors of ``dtype``:
+    shapes without storage (the JAX package's ``ShapeDtypeStruct``s)."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=dtype,
+                                            device="meta"), param_specs(cfg))
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """The parameter tree of logical axis tuples, one name (or None) a
+    dim, that ``sharding.param_shardings`` resolves to a mesh."""
+    return _map_specs(lambda s: s.axes, param_specs(cfg))
 
 
 def _put(tree: dict, path: str, val) -> None:
@@ -770,3 +814,34 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
             "architecturally quadratic — skipped per DESIGN.md §4"
         )
     return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str, batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Dict:
+    """Meta-tensor stand-ins for every model input of a ``SHAPE_SETS``
+    entry (no allocation): ``tokens`` (and ``labels`` for train),
+    Whisper's bf16 ``frames`` [b, encoder_seq, d] and M-RoPE's
+    ``positions`` [b, 3, s]; for decode ``token``, the scalar ``length``
+    and the bf16 ``cache`` of ``cache_specs``."""
+    info = SHAPE_SETS[shape]
+    b = batch or info["batch"]
+    s = seq or info["seq"]
+    i32 = torch.int32
+    if info["kind"] in ("train", "prefill"):
+        # whisper trains/serves on (audio frames -> text): text length s
+        out = dict(tokens=_meta((b, s), i32))
+        if info["kind"] == "train":
+            out["labels"] = _meta((b, s), i32)
+        if cfg.family == "audio":
+            out["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model),
+                                  torch.bfloat16)
+        if cfg.rope_type == "mrope":
+            out["positions"] = _meta((b, 3, s), i32)
+        return out
+    return dict(token=_meta((b,), i32), length=_meta((), i32),
+                cache={name: _meta(shp, dt) for name, (shp, dt)
+                       in cache_specs(cfg, b, s).items()})

@@ -20,8 +20,8 @@ import torch
 
 from .tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
-           "global_norm"]
+__all__ = ["AdamWConfig", "OptState", "adamw_init", "abstract_opt_state",
+           "adamw_update", "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +49,18 @@ def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> OptState:
     dev = tree_leaves(params)[0].device
     return OptState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def abstract_opt_state(params_abstract,
+                       cfg: AdamWConfig = AdamWConfig()) -> OptState:
+    """``adamw_init``'s state as meta tensors (no allocation): moments of
+    each parameter's shape in ``cfg.moment_dtype``, a scalar int32
+    ``step``."""
+    meta = lambda p: torch.empty(p.shape, dtype=cfg.moment_dtype,
+                                 device="meta")
+    return OptState(mu=tree_map(meta, params_abstract),
+                    nu=tree_map(meta, params_abstract),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

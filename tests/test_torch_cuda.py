@@ -823,16 +823,27 @@ def test_multitenant_service_on_the_card(card, tmp_path):
     assert "sync_debug" in _check_no_host_sync(svc, pool, mixes)
 
 
-def _load_replay():
-    """``tests/goldens/distributed_replay.py`` by path (no JAX import)."""
+def _load(name, *parts):
+    """A module of the repository by path (none imports JAX)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "goldens", "distributed_replay.py")
-    spec = importlib.util.spec_from_file_location("distributed_replay", path)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), *parts)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _load_replay():
+    """``tests/goldens/distributed_replay.py``."""
+    return _load("distributed_replay", "tests", "goldens",
+                 "distributed_replay.py")
+
+
+def _smoke():
+    """``chip_smoke.py`` (for ``mrope_image_positions``)."""
+    return _load("chip_smoke", "chip_smoke.py")
 
 
 def test_distributed_world_one_nccl_on_the_card(card, tmp_path):
@@ -885,27 +896,37 @@ def test_edge_butterflies_csr_kernel_route_on_the_card(card):
 # relative L2 of a gradient through the kernel against torch autograd
 # through the plain version: the f32 forward's gate is 1e-4 a row
 # (chip_smoke.py, ATTN_ROW_RTOL), and the backward is the same torch ops
-# on both sides, so the gradients inherit that
+# on both sides, so the gradients inherit that; in bf16 the forward's
+# row gate is 1e-2, and both routes' gradients are rounded to bf16
 GRAD_RTOL = 1e-4
+GRAD_RTOL_BF16 = 1e-2
 
 
-@pytest.mark.parametrize("shape,kv,causal,offset", [
-    ((2, 8, 256, 64), 2, True, 0),       # the 3xTF32 route, GQA
-    ((2, 4, 200, 32), 2, True, 0),       # the CUDA-core route, ragged
-    ((1, 4, 64, 64), 4, True, 192),      # an offset: the cache's end
-    ((1, 4, 96, 32), 1, False, 0),
+@pytest.mark.parametrize("shape,kv,causal,offset,dtype", [
+    ((2, 8, 256, 64), 2, True, 0, torch.float32),  # 3xTF32 route, GQA
+    ((2, 4, 200, 32), 2, True, 0, torch.float32),  # CUDA cores, ragged
+    ((1, 4, 64, 64), 4, True, 192, torch.float32),  # the cache's end
+    ((1, 4, 96, 32), 1, False, 0, torch.float32),
+    # Whisper's cross-attention (Sq 448 and 1 against Sk 1 500, 20/20
+    # heads of D 64, non-causal): Sk = Sq + offset
+    ((2, 20, 448, 64), 20, False, 1052, torch.float32),
+    ((2, 20, 448, 64), 20, False, 1052, torch.bfloat16),
+    ((2, 20, 1, 64), 20, False, 1499, torch.float32),
+    ((2, 20, 1, 64), 20, False, 1499, torch.bfloat16),
 ])
-def test_flash_attention_grads_on_the_card(card, shape, kv, causal, offset):
+def test_flash_attention_grads_on_the_card(card, shape, kv, causal, offset,
+                                           dtype):
     """dq, dk, dv through ``FlashAttention`` (the kernel forward) against
-    torch autograd through the plain version, both on the card; the
-    kernel launches once."""
+    torch autograd through the plain version, both on the card, in
+    ``dtype``; the kernel launches once."""
     gen = torch.Generator(card).manual_seed(sum(shape))
     B, H, sq, D = shape
     sk = sq + offset if offset else sq
-    q = torch.randn(shape, generator=gen, device=card)
-    k, v = (torch.randn((B, kv, sk, D), generator=gen, device=card)
+    q = torch.randn(shape, generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((B, kv, sk, D), generator=gen, device=card).to(dtype)
             for _ in range(2))
-    w = torch.randn(shape, generator=gen, device=card)
+    w = torch.randn(shape, generator=gen, device=card).to(dtype)
+    rtol = GRAD_RTOL if dtype == torch.float32 else GRAD_RTOL_BF16
     grads = []
     for fn in (ops.flash_attention, lambda *a, **kw: ref.flash_attention_ref(
             *a, **kw)):
@@ -916,7 +937,9 @@ def test_flash_attention_grads_on_the_card(card, shape, kv, causal, offset):
         if not grads[1:]:
             assert ops.launch_counts()["flash_attention"] == 1
     for a, b in zip(*grads):
-        assert ((a - b).norm() / b.norm()).item() <= GRAD_RTOL
+        assert a.dtype == b.dtype == dtype
+        assert ((a.float() - b.float()).norm()
+                / b.float().norm()).item() <= rtol
 
 
 @pytest.mark.parametrize("d,dv,causal", [(192, 128, True), (112, 112, True),
@@ -945,17 +968,20 @@ def test_flash_attention_grads_at_padded_head_dims(card, d, dv, causal):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "dbrx_132b",
-                                  "xlstm_1_3b", "zamba2_7b"])
+                                  "xlstm_1_3b", "zamba2_7b",
+                                  "whisper_large_v3", "qwen2_vl_72b"])
 def test_reduced_grads_on_the_card_equal_the_cpu(card, arch):
-    """``train_loss`` and every gradient leaf of a reduced MoE, SSM or
-    hybrid model on the card (attention through the kernel: MLA padded
-    to D 64, Zamba2's shared block at D 32) against the same on the CPU
-    (the plain version), ``convert.numpy_params`` weights: the loss to
-    1e-5 relative, each leaf within ``GRAD_RTOL`` (the SSM and hybrid
-    families within ``tests/test_torch_ssm.py``'s 2e-4: their chunked
-    recurrence amplifies f32 rounding, and the two devices sum in other
-    orders); ``flash_attention`` launches twice an attention layer
-    (forward and recompute)."""
+    """``train_loss`` and every gradient leaf of a reduced MoE, SSM,
+    hybrid, audio or VLM model on the card (attention through the kernel:
+    MLA padded to D 64, Zamba2's shared block at D 32, Whisper's encoder
+    and cross-attention non-causal, Qwen2-VL under M-RoPE positions with
+    an image block) against the same on the CPU (the plain version),
+    ``convert.numpy_params`` weights: the loss to 1e-5 relative, each
+    leaf within ``GRAD_RTOL`` (the SSM and hybrid families within
+    ``tests/test_torch_ssm.py``'s 2e-4: their chunked recurrence
+    amplifies f32 rounding, and the two devices sum in other orders);
+    ``flash_attention`` launches twice an attention (forward and
+    recompute)."""
     from repro_torch.configs import get_config
     from repro_torch.models import reduced, train_loss
     from repro_torch.models.convert import numpy_params, params_from_numpy
@@ -966,6 +992,12 @@ def test_reduced_grads_on_the_card_equal_the_cpu(card, arch):
     rng = np.random.default_rng(5)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
              for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.rope_type == "mrope":
+        batch["positions"] = torch.from_numpy(
+            _smoke().mrope_image_positions(2, 32, 4, (4, 4)))
     out = {}
     for dev in ("cpu", card):
         leaves = tree_map(lambda t: t.requires_grad_(),
@@ -975,7 +1007,8 @@ def test_reduced_grads_on_the_card_equal_the_cpu(card, arch):
                           cfg)
         out[str(dev)] = (loss.item(), torch.autograd.grad(
             loss, tree_leaves(leaves)))
-    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "audio": cfg.encoder_layers + 2 * cfg.n_layers}.get(
         cfg.family, cfg.n_layers)
     assert ops.launch_counts()["flash_attention"] == 2 * attn
     (l0, g0), (l1, g1) = out["cpu"], out[str(card)]
@@ -1024,3 +1057,48 @@ def test_reduced_train_step_on_the_card(card):
         off = ~np.isclose(a, b, rtol=1e-5, atol=1e-6)
         assert off.mean() <= 1e-3
         assert np.abs(a - b).max() <= 1e-2
+
+
+def test_remesh_world_one_nccl_on_the_card(card, tmp_path):
+    """A world-1 NCCL group: ``remesh`` of reduced TinyLlama's parameters
+    and AdamW state onto ``make_local_mesh`` gives ``DTensor``s on the
+    card, each equal to its input, re-placed again from them unchanged;
+    a train step from the re-placed state (its local shards) equals the
+    step from the plain tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import logical_axes, reduced
+    from repro_torch.models.convert import numpy_params, params_from_numpy
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step, remesh)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config("tinyllama_1_1b"), n_layers=2)
+    params = params_from_numpy(numpy_params(cfg, seed=3), cfg, device=card)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(card)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+        lr=1e-2, warmup_steps=1)))
+    flat = lambda p, o: tree_leaves(p) + tree_leaves(o)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(device="cuda")
+        assert tuple(mesh.shape) == (1, 1)
+        p1, o1 = remesh(params, opt, logical_axes(cfg), mesh)
+        p2, o2 = remesh(p1, o1, logical_axes(cfg), mesh)
+        for a, b in zip(flat(params, opt), flat(p2, o2), strict=True):
+            assert isinstance(b, DTensor) and b.to_local().is_cuda
+            assert torch.equal(b.to_local(), a)
+        local = lambda t: tree_map(lambda d: d.to_local(), t)
+        got = step(local(p2), type(o2)(*map(local, o2)), batch)
+        want = step(params, opt, batch)
+        for a, b in zip(flat(*got[:2]), flat(*want[:2]), strict=True):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

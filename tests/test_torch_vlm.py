@@ -251,12 +251,25 @@ def test_chip_smoke_audio_vlm_phase_rehearsed_on_cpu(monkeypatch):
                   batch=2, seq=32, image=dict(start=4, grid=(4, 4)),
                   check_batch=2, check_seq=8),
         cli=tuple([*args[:2], "--reduced", "--batch", "2", "--prompt-len",
-                   "4", "--gen", "4"] for args in av["cli"]))
+                   "4", "--gen", "4"] for args in av["cli"]),
+        train=dict(av["train"], models=(
+            dict(av["train"]["models"][0], cfg=reduced(get_config(
+                "whisper_large_v3")), batch=2, seq=16),
+            dict(av["train"]["models"][1], cfg=reduced(get_config(ARCH)),
+                 batch=2, seq=32, image=dict(start=4, grid=(4, 4)))),
+            cli_flags=["--steps", "8", "--batch", "2", "--seq", "16",
+                       "--log-every", "1"]))
     launches = {}
     row, info = smoke.phase_audio_vlm(golden, "cpu", launches, spec=spec,
                                       golden_cfgs=gcfgs)
     assert launches == {"flash_attention": 0}
-    assert row["launches"] == {"whisper": 0, "qwen": 0}
+    assert row["launches"] == {"whisper": 0, "qwen": 0, "training": 0}
+    train = info["train"]
+    assert set(train) == {"whisper-large-v3", "qwen2-vl-72b", "cli"}
+    for name in ("whisper-large-v3", "qwen2-vl-72b"):
+        assert train[name]["plain_worst_rel_l2"] <= smoke.TRAIN_GRAD_RTOL
+        assert train[name]["remat_worst_rel_l2"] <= smoke.MOE_REMAT_RTOL
+    assert set(train["cli"]) == {"whisper_large_v3", ARCH}
     assert [c["library_ms"] for c in row["cases"]] == [0.0] * 3
     assert info["whisper"]["decode"]["max_abs_err"] < 2e-2
     assert info["qwen"]["decode"]["max_abs_err"] < smoke.LOGIT_ATOL
