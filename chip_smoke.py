@@ -2214,7 +2214,7 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
     # numpy normals) drawn on one host thread from here on, beside phases
     # 12-15
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-    dry = None
+    dry = card = None
     try:
         moe_tree = pool.submit(golden_tree, moe_golden,
                                moe_golden_config(moe_golden))
@@ -2248,6 +2248,10 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                 + moe_info["train"][k]["launches_none"]
                 for k in moe_info["train"] if k != "cli")
 
+        # phase 17's four ranks (CPU work once gloo fails on the card, bar
+        # a probe and the plain reference there) in their own processes
+        # from here on
+        card = start_card(tmp)
         with Phase("15-ssm"):
             rows["flash_attention"]["zamba2"], ssm_info = phase_ssm(
                 ssm_golden, dev, launches, trees=ssm_trees)
@@ -2262,15 +2266,22 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
             rows["flash_attention"]["training_launches"]["audio_vlm"] = rows[
                 "flash_attention"]["audio_vlm"]["launches"]["training"]
     except BaseException:
-        if dry is not None and dry[0].poll() is None:
-            dry[0].kill()
-            dry[0].wait()
+        for proc in (dry, card):
+            if proc is not None and proc[0].poll() is None:
+                proc[0].kill()
+                proc[0].wait()
         raise
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
     with Phase("17-lm-mesh"):
-        mesh_info = phase_lm_mesh(dev, tmp, dry=dry)
+        launched = launches.get("flash_attention", 0)
+        mesh_info = phase_lm_mesh(dev, tmp, dry=dry, launches=launches,
+                                  card=card)
+        rows["flash_attention"]["lm_mesh"] = dict(
+            launches=launches["flash_attention"] - launched,
+            world1=mesh_info["launches"],
+            ranks=mesh_info["ranks"].get("launches"))
 
     missing = [k for k in KERNEL_INFO if launches.get(k, 0) == 0]
     if missing:
@@ -2291,7 +2302,8 @@ def run_phases(fullsize, realdata, engines, lm_golden, streams, mt_golden,
                                        "random_f32_rel_err", "library",
                                        "ms_packed", "pack_ms", "int_mm_ms",
                                        "tiled_e2e_ms", "training_launches",
-                                       "mla", "zamba2", "audio_vlm")
+                                       "mla", "zamba2", "audio_vlm",
+                                       "lm_mesh")
                if key in r}))
     log(json.dumps(dict(phase_seconds=Phase.seconds, gmma=gmma,
                         fd_driver_seconds=fd_times,
@@ -5360,138 +5372,375 @@ def phase_audio_vlm(golden, dev, launches, spec=AUDIO_VLM, golden_cfgs=None,
 
 
 # ---------------------------------------------------------------------
-# phase 17: the LM distribution layer (meshes, shardings, remesh, the
-# dry-run)
+# phase 17: the LM distribution layer (meshes, shardings, remesh, sharded
+# compute, the dry-run and the roofline)
 # ---------------------------------------------------------------------
 LM_MESH = dict(
-    arch="tinyllama_1_1b", seed=7, batch=1, seq=512, lr=1e-2,
-    dryrun=["--arch", "tinyllama_1_1b"],
+    arch="tinyllama_1_1b", seed=7, batch=1, seq=512, lr=1e-2, decode_steps=8,
+    dryrun=["--arch", "tinyllama_1_1b"], roofline=["--arch", "tinyllama_1_1b"],
     # train_4k's per-device argument bytes on 16×16 and 2×16×16: JAX's
     # Σ NamedSharding.shard_shape × itemsize over what its dry-run places
     # (tests/test_torch_dryrun.py holds these to JAX)
     argument_bytes={"16x16": 44412932, "2x16x16": 44150788},
+    # the four gloo ranks' step (shard_compute_replay.CARD) against the
+    # plain step: the loss's relative error; each gradient leaf's
+    # relative L2 is held to TRAIN_GRAD_RTOL
+    card_loss_rtol=1e-5, card=None,
 )
+# the H100's peaks the roofline divides by (launch/roofline.py) and the
+# FP32 peak of the world-1 step's full-f32 products (PERF.md §6)
+FP32_PEAK = 67e12
+
+_DRY = """
+import json, os, sys
+os.nice(10)  # beside the smoke: the host's idle cores, not its main thread's
+from repro_torch.launch import dryrun, roofline
+a = json.loads(sys.argv[1])
+dryrun.main(a["dryrun"] + ["--no-count", "--out", a["out"]["dryrun"]])
+for mp, key in (([], "roofline_1"), (["--multi-pod"], "roofline_2")):
+    roofline.main(a["roofline"] + mp + ["--out", a["out"][key]])
+one = dryrun.dryrun_cell(a["arch"], "train_4k", verbose=False,
+                         mesh_shape=((1, 1), ("data", "model")),
+                         batch=a["batch"], seq=a["seq"])
+json.dump(one, open(a["out"]["one"], "w"))
+"""
 
 
 def start_dryrun(tmp, spec=LM_MESH) -> tuple:
-    """``python -m repro_torch.launch.dryrun`` over ``spec["dryrun"]`` in
-    its own process (CPU only), started now; returns (the process, its
-    ``--out`` JSON) for ``phase_lm_mesh``."""
-    out = os.path.join(tmp, "dryrun.json")
+    """One CPU process, started now: ``python -m repro_torch.launch.dryrun``
+    over ``spec["dryrun"]`` (the arguments placed, ``--no-count``), the
+    roofline CLI for that arch on both production meshes, and the
+    dry-run's count of the world-1 step's shape on the (1, 1) mesh;
+    returns (the process, its output files) for ``phase_lm_mesh``."""
+    out = {k: os.path.join(tmp, f"{k}.json")
+           for k in ("dryrun", "roofline_1", "roofline_2", "one")}
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    args = dict(dryrun=spec["dryrun"], roofline=spec["roofline"],
+                arch=spec["arch"], batch=spec["batch"], seq=spec["seq"],
+                out=out)
     return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *spec["dryrun"],
-         "--out", out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True), out
+        [sys.executable, "-c", _DRY, json.dumps(args)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out
 
 
-def phase_lm_mesh(dev, tmp, spec=LM_MESH, dry=None) -> dict:
-    """Phase 17.  In a world-1 process group (NCCL on the card, gloo on
-    the CPU): ``make_local_mesh`` is (1, 1) ``("data", "model")``;
-    ``remesh`` of the full-width f32 parameters and ``adamw_init`` state
-    onto it gives ``DTensor``s each ``torch.equal`` to its input; a train
-    step from the re-placed state (their local shards) equals the step
-    from the plain tensors, bit for bit.  Beside it, the dry-run CLI in
-    its own process over every shape of ``spec["dryrun"]``'s arch on both
-    production meshes (fake groups of 256 and 512 ranks, the CPU;
-    ``dry``: ``start_dryrun``'s, started early by the caller): no cell in
-    error, train_4k's per-device argument bytes JAX's."""
+def _placed_like(tree, mesh):
+    """``tree`` (a batch or cache) placed by ``batch_shardings``."""
+    from repro_torch.sharding import batch_shardings, distribute
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(distribute, tree, batch_shardings(tree, mesh))
+
+
+def lm_mesh_world1(dev, tmp, spec, launches) -> dict:
+    """Phase 17's world-1 part (NCCL on the card, gloo on the CPU):
+    ``make_local_mesh`` is (1, 1) ``("data", "model")``; ``remesh`` of the
+    full-width f32 parameters and ``adamw_init`` state gives ``DTensor``s
+    each ``torch.equal`` to its input; the train step on those
+    ``DTensor``s themselves (``constrain`` and ``local_map`` live) equals
+    the plain step bit for bit; so do a prefill and ``decode_steps``
+    decode steps through the mesh path.  Launches of the mesh path are
+    the main path's."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import init_params, logical_axes
+    from repro_torch.models import (init_cache, init_params, logical_axes,
+                                    prefill, serve_step)
+    from repro_torch.sharding import cache_shardings, distribute, use_mesh
     from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
                                    make_train_step, remesh)
     from repro_torch.train.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
-    dry, out = dry or start_dryrun(tmp, spec)
     info = {}
     cuda = torch.device(dev).type == "cuda"
+
+    def count():
+        n = ops.launch_counts()["flash_attention"]
+        launches["flash_attention"] = launches.get("flash_attention", 0) + n
+        ops.reset_launch_counts()
+        return n
+
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{tmp}/mesh-rdzv",
+                            rank=0, world_size=1)
     try:
-        dist.init_process_group("nccl" if cuda else "gloo",
-                                init_method=f"file://{tmp}/mesh-rdzv",
-                                rank=0, world_size=1)
-        try:
-            mesh = make_local_mesh(device=dev)
-            sync(dev)
-            info["group_s"] = time.perf_counter() - t0
-            expect("local mesh", "shape and names",
-                   (tuple(mesh.shape), mesh.mesh_dim_names),
-                   ((1, 1), ("data", "model")))
-            cfg = spec.get("cfg") or get_config(spec["arch"])
-            gen = torch.Generator(device=dev).manual_seed(spec["seed"])
-            params = init_params(cfg, gen, dev, torch.float32)
-            opt = adamw_init(params)
-            flat = lambda p, o: tree_leaves(p) + tree_leaves(o)
-            sync(dev)
-            t1 = time.perf_counter()
-            p1, o1 = remesh(params, opt, logical_axes(cfg), mesh)
-            sync(dev)
-            info["remesh_s"] = time.perf_counter() - t1
-            info["leaves"] = len(flat(p1, o1))
-            info["params"] = sum(x.numel() for x in tree_leaves(params))
-            for a, b in zip(flat(params, opt), flat(p1, o1), strict=True):
-                if not (isinstance(b, DTensor) and b.device_mesh is mesh
-                        and torch.equal(b.to_local(), a)):
-                    raise AssertionError("remesh: a leaf is not its input "
-                                         "placed on the local mesh")
-            ids = torch.randint(0, cfg.vocab, (spec["batch"], spec["seq"] + 1),
-                                generator=gen, device=dev)
-            batch = dict(tokens=ids[:, :-1], labels=ids[:, 1:])
-            step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
-                lr=spec["lr"], warmup_steps=1)))
-            local = lambda t: tree_map(lambda d: d.to_local(), t)
-            t1 = time.perf_counter()
-            got = step(local(p1), type(o1)(*map(local, o1)), batch)
-            sync(dev)
-            info["step_s"] = time.perf_counter() - t1
-            del p1, o1
-            want = step(params, opt, batch)
-            del params, opt
-            same = all(torch.equal(a, b) for a, b in zip(
-                flat(*got[:2]), flat(*want[:2]), strict=True))
-            info["loss"] = [got[2]["loss"].item(), want[2]["loss"].item()]
-            del got, want
-            _free(dev)
-            if not (same and info["loss"][0] == info["loss"][1]):
-                raise AssertionError(f"a step from the re-placed state differs "
-                                     f"from the plain step: {info['loss']}")
-        finally:
-            dist.destroy_process_group()
+        mesh = make_local_mesh(device=dev)
+        sync(dev)
+        info["group_s"] = time.perf_counter() - t0
+        expect("local mesh", "shape and names",
+               (tuple(mesh.shape), mesh.mesh_dim_names),
+               ((1, 1), ("data", "model")))
+        cfg = spec.get("cfg") or get_config(spec["arch"])
+        gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+        params = init_params(cfg, gen, dev, torch.float32)
+        opt = adamw_init(params)
+        flat = lambda p, o: tree_leaves(p) + tree_leaves(o)
+        sync(dev)
         t1 = time.perf_counter()
-        stdout, stderr = dry.communicate(timeout=300)
+        p1, o1 = remesh(params, opt, logical_axes(cfg), mesh)
+        sync(dev)
+        info["remesh_s"] = time.perf_counter() - t1
+        info["leaves"] = len(flat(p1, o1))
+        info["params"] = sum(x.numel() for x in tree_leaves(params))
+        for a, b in zip(flat(params, opt), flat(p1, o1), strict=True):
+            if not (isinstance(b, DTensor) and b.device_mesh is mesh
+                    and torch.equal(b.to_local(), a)):
+                raise AssertionError("remesh: a leaf is not its input "
+                                     "placed on the local mesh")
+        ids = torch.randint(0, cfg.vocab, (spec["batch"], spec["seq"] + 1),
+                            generator=gen, device=dev)
+        batch = dict(tokens=ids[:, :-1], labels=ids[:, 1:])
+        step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+            lr=spec["lr"], warmup_steps=1)))
+        ops.reset_launch_counts()
+        placed = _placed_like(batch, mesh)
+        sync(dev)
+        t1 = time.perf_counter()
+        got = step(p1, o1, placed)
+        sync(dev)
+        info["step_cold_s"] = time.perf_counter() - t1
+        info["launches"] = dict(step=count())
+        t1 = time.perf_counter()    # again, DTensor's sharding plans cached
+        again = step(p1, o1, placed)
+        sync(dev)
+        info["step_s"] = time.perf_counter() - t1
+        info["launches"]["step_warm"] = count()
+        same_again = all(torch.equal(a.to_local(), b.to_local()) for a, b in
+                         zip(flat(*got[:2]), flat(*again[:2]), strict=True))
+        del o1, again
+        t1 = time.perf_counter()
+        want = step(params, opt, batch)
+        sync(dev)
+        info["plain_step_s"] = time.perf_counter() - t1
+        ops.reset_launch_counts()
+        del opt
+        same = all(torch.equal(a.to_local(), b) for a, b in zip(
+            flat(*got[:2]), flat(*want[:2]), strict=True))
+        info["loss"] = [got[2]["loss"].to_local().item(),
+                        want[2]["loss"].item()]
+        del got, want
+        _free(dev)
+        if not (same and same_again and info["loss"][0] == info["loss"][1]):
+            raise AssertionError(f"the sharded step on the local mesh "
+                                 f"differs from the plain step: "
+                                 f"{info['loss']}")
+        with torch.no_grad():
+            tokens = batch["tokens"]
+            want = prefill(params, tokens, cfg)
+            ops.reset_launch_counts()
+            with use_mesh(mesh):
+                got = prefill(p1, _placed_like(dict(t=tokens), mesh)["t"],
+                              cfg)
+            info["launches"]["prefill"] = count()
+            same_prefill = torch.equal(got.to_local(), want)
+            n = spec["decode_steps"]
+            b = tokens.shape[0]
+            cache = init_cache(cfg, b, n, dev, torch.float32)
+            cache_m = tree_map(distribute, init_cache(
+                cfg, b, n, dev, torch.float32), cache_shardings(
+                    cache, mesh, cfg))
+            same_decode = []
+            for t in range(n):
+                tok = tokens[:, t].contiguous()
+                lp, cache = serve_step(params, cache, tok, t, cfg)
+                with use_mesh(mesh):
+                    lm, cache_m = serve_step(
+                        p1, cache_m, _placed_like(dict(t=tok), mesh)["t"],
+                        t, cfg)
+                same_decode.append(torch.equal(lm.to_local(), lp))
+            same_decode.append(all(torch.equal(cache_m[k].to_local(), v)
+                                   for k, v in cache.items()))
+            ops.reset_launch_counts()
+        del params, p1, cache, cache_m
+        _free(dev)
+        info["prefill_equal"], info["decode_equal"] = same_prefill, same_decode
+        if not (same_prefill and all(same_decode)):
+            raise AssertionError(f"the mesh path's prefill ({same_prefill}) "
+                                 f"or decode steps and cache ({same_decode}) "
+                                 "differ from the plain path's")
+    finally:
+        dist.destroy_process_group()
+    info["seconds"] = time.perf_counter() - t0
+    return info
+
+
+def start_card(tmp, spec=LM_MESH) -> tuple:
+    """``tests/goldens/shard_compute_replay.py --card`` (the four gloo
+    ranks of phase 17: mostly CPU work once gloo refuses the card) in
+    its own process, started now; returns (the process, its case
+    directory, the start time) for ``lm_mesh_ranks``."""
+    case = os.path.join(tmp, "card")
+    os.makedirs(case, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    argv = [sys.executable, os.path.join(ROOT, "tests", "goldens",
+                                         "shard_compute_replay.py"),
+            "--card", "--case", case]
+    if spec.get("card"):
+        argv += ["--card-spec", json.dumps(spec["card"])]
+    return (subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), case,
+            time.perf_counter())
+
+
+def lm_mesh_ranks(dev, tmp, spec, launches, card=None) -> dict:
+    """Phase 17's four ranks: ``tests/goldens/shard_compute_replay.py
+    --card`` (gloo, sharing the card, a (2, 2) mesh, TinyLlama-1.1B at
+    full width and depth 2, b 4 × 512).  The loss within
+    ``card_loss_rtol`` and every gradient leaf within ``TRAIN_GRAD_RTOL``
+    (relative L2) of the plain step on the same weights and batch; on the
+    card ``flash_attention`` launched on every rank's local shard (twice a
+    layer: forward and remat).  Gloo's collectives are probed on CUDA
+    tensors first; where one that ``DTensor`` needs fails (or kills its
+    rank), it is named and the ranks run on the CPU instead."""
+    import torch
+
+    proc, case, t0 = card or start_card(tmp, spec)
+    t1 = time.perf_counter()
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs, waited = time.perf_counter() - t0, time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"four ranks failed (rc {proc.returncode}): "
+                             f"{stdout[-2000:]}{stderr[-3000:]}")
+    sys.path.insert(0, os.path.join(ROOT, "tests", "goldens"))
+    try:
+        import shard_compute_replay as replay
+    finally:
+        sys.path.pop(0)
+    card = dict(replay.CARD, **(spec.get("card") or {}))
+    with open(os.path.join(case, "probe.json")) as f:
+        probe = json.load(f)
+    ran = probe.pop("ran_on")
+    ranks = [json.load(open(os.path.join(case, f"card-{ran}-rank{r}.json")))
+             for r in range(card["world"])]
+    bad = [r.get("error") for r in ranks if "error" in r]
+    if bad:
+        raise AssertionError(f"four ranks on {ran}: {bad[0]}\n"
+                             f"{ranks[0].get('trace', '')}")
+    r0 = ranks[0]
+    info = dict(device=ran, probe_cuda=probe, seconds=round(secs, 3),
+                waited_s=round(waited, 3), step_s=[r["step_s"] for r in ranks],
+                collective_counts=r0["collective_counts"],
+                collective_bytes=r0["collective_bytes"],
+                loss=[r0["loss_sharded"], r0["loss_plain"]],
+                worst_rel_l2=r0["worst_rel_l2"], leaves=r0["leaves"],
+                flash_launches=[r["flash_launches"] for r in ranks])
+    if torch.device(dev).type == "cuda" and ran == "cuda":
+        for r, n in enumerate(info["flash_launches"]):
+            expect(f"rank {r} of four", "flash_attention launches on its "
+                   "shard", n, 2 * card["depth"])
+        n = sum(r["flash_launches_total"] for r in ranks)
+        launches["flash_attention"] = launches.get("flash_attention", 0) + n
+        info["launches"] = n
+    rel = abs(info["loss"][0] - info["loss"][1]) / abs(info["loss"][1])
+    if not (rel <= spec["card_loss_rtol"]
+            and info["worst_rel_l2"] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"four ranks: loss {info['loss']} (rel {rel}), "
+                             f"worst leaf {info['worst_rel_l2']} against the "
+                             "plain step")
+    return info
+
+
+def phase_lm_mesh(dev, tmp, spec=LM_MESH, dry=None, launches=None,
+                  card=None) -> dict:
+    """Phase 17: ``lm_mesh_world1`` (the world-1 mesh path bit-equal to
+    the plain one), ``lm_mesh_ranks`` (four gloo ranks on a (2, 2) mesh
+    against the plain step), and beside them, in their own CPU process
+    (``dry``: ``start_dryrun``'s, started early by the caller), the
+    dry-run CLI over every shape of ``spec["dryrun"]``'s arch on both
+    production meshes (no cell in error, train_4k's per-device argument
+    bytes JAX's), the roofline CLI for that arch on both (no cell in
+    error; each cell's bottleneck and terms printed) and the dry-run's
+    FLOPs of the world-1 step, whose time at the peaks stands beside the
+    step's measured seconds.  ``card``: ``start_card``'s, started early
+    by the caller (else started here, beside the world-1 part)."""
+    t0 = time.perf_counter()
+    launches = {} if launches is None else launches
+    dry, out = dry or start_dryrun(tmp, spec)
+    card = card or start_card(tmp, spec)
+    try:
+        info = lm_mesh_world1(dev, tmp, spec, launches)
+        info["ranks"] = lm_mesh_ranks(dev, tmp, spec, launches, card)
+        t1 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=600)
         info["dryrun_wait_s"] = time.perf_counter() - t1
         if dry.returncode != 0:
-            raise AssertionError(f"launch.dryrun exited {dry.returncode}:\n"
-                                 f"{stdout}\n{stderr}")
-        with open(out) as f:
-            recs = json.load(f)
+            raise AssertionError(f"the dry-run process exited "
+                                 f"{dry.returncode}:\n{stdout[-3000:]}\n"
+                                 f"{stderr[-3000:]}")
+        recs = {}
+        for k, path in out.items():
+            with open(path) as f:
+                recs[k] = json.load(f)
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
-    info["dryrun"] = {f"{r['shape']} {'2x16x16' if r['multi_pod'] else '16x16'}":
-                      r.get("mem", {}).get("argument_bytes", r["status"])
-                      for r in recs}
-    bad = [r for r in recs if r["status"] not in ("ok", "skipped")]
+        for proc in (dry, card[0]):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    info["dryrun"] = {
+        f"{r['shape']} {'2x16x16' if r['multi_pod'] else '16x16'}":
+        r.get("mem", {}).get("argument_bytes", r["status"])
+        for r in recs["dryrun"]}
+    bad = [r for r in recs["dryrun"] + recs["roofline_1"] + recs["roofline_2"]
+           if r["status"] not in ("ok", "skipped")]
     got = {mesh: info["dryrun"][f"train_4k {mesh}"]
            for mesh in spec["argument_bytes"]}
+    info["roofline"] = {
+        f"{r['shape']} {'2x16x16' if r.get('multi_pod') else '16x16'}":
+        (dict(bottleneck=r["bottleneck"], t_compute_s=r["t_compute_s"],
+              t_memory_s=r["t_memory_s"], t_collective_s=r["t_collective_s"],
+              model_flops_per_chip=r["model_flops_per_chip"],
+              flops_per_chip=r["flops_per_chip"])
+         if r["status"] == "ok" else r["status"])
+        for r in recs["roofline_1"] + recs["roofline_2"]}
+    one = recs["one"]
+    info["one_card"] = dict(flops=one["flops"],
+                            t_bf16_peak_s=one["flops"] / 989e12,
+                            t_fp32_peak_s=one["flops"] / FP32_PEAK,
+                            measured_step_s=info["step_s"])
     info["seconds"] = time.perf_counter() - t0
-    log(f"[smoke]   {cfg.name} at full width ({info['params']} parameters, "
-        f"{info['leaves']} leaves with AdamW's moments) remeshed onto the "
-        f"local (1, 1) mesh in {info['remesh_s']:.3f} s, every leaf equal; "
-        f"a train step from it at b {spec['batch']} × s {spec['seq']} in "
-        f"{info['step_s']:.3f} s equal to the plain step (loss "
-        f"{info['loss'][0]:.6f}); the dry-run's per-device argument bytes "
-        f"{info['dryrun']}; phase 17 {info['seconds']:.1f} s (the group and "
-        f"mesh {info['group_s']:.1f}, waiting for the dry-run "
+    ranks = info["ranks"]
+    for cell, r in info["roofline"].items():
+        log(f"[smoke]   roofline {spec['arch']} {cell}: "
+            + (f"{r['bottleneck']} (t_compute {r['t_compute_s']:.3e} s, "
+               f"t_memory {r['t_memory_s']:.3e} s, t_collective "
+               f"{r['t_collective_s']:.3e} s)" if isinstance(r, dict)
+               else r))
+    log(f"[smoke]   {spec['arch']} at full width ({info['params']} "
+        f"parameters, {info['leaves']} leaves with AdamW's moments) remeshed "
+        f"onto the local (1, 1) mesh in {info['remesh_s']:.3f} s, every leaf "
+        f"equal; the train step on those DTensors at b {spec['batch']} × s "
+        f"{spec['seq']} in {info['step_s']:.3f} s (the first, DTensor's "
+        f"plans not yet cached, {info['step_cold_s']:.3f} s; plain "
+        f"{info['plain_step_s']:.3f} s) equal to the plain step bit for bit "
+        f"(loss {info['loss'][0]:.6f}), its prefill and "
+        f"{spec['decode_steps']} decode steps too; flash_attention launches "
+        f"on the mesh path {info['launches']}; the dry-run's count of that "
+        f"step {one['flops']:.4e} FLOPs: {info['one_card']['t_bf16_peak_s']:.4f}"
+        f" s at the bf16 peak, {info['one_card']['t_fp32_peak_s']:.4f} s at "
+        f"FP32's, measured {info['step_s']:.4f} s")
+    log(f"[smoke]   four gloo ranks on {ranks['device']} ((2, 2) mesh; gloo "
+        f"on CUDA tensors: {ranks['probe_cuda']}): loss {ranks['loss']}, "
+        f"worst leaf {ranks['worst_rel_l2']:.3e} (limit {TRAIN_GRAD_RTOL}), "
+        f"step seconds by rank {ranks['step_s']}, collectives by kind "
+        f"{ranks['collective_counts']} ({ranks['collective_bytes']} bytes), "
+        f"flash_attention a rank {ranks['flash_launches']} ({ranks['seconds']}"
+        f" s from its start, {ranks['waited_s']} s waited for); the dry-run's "
+        f"per-device argument bytes {info['dryrun']}; phase 17 "
+        f"{info['seconds']:.1f} s (waiting for the dry-run "
         f"{info['dryrun_wait_s']:.1f})")
     if bad:
-        raise AssertionError(f"dry-run cells in error: {bad}")
+        raise AssertionError(f"dry-run or roofline cells in error: {bad}")
     expect("dry-run train_4k", "argument bytes", got, spec["argument_bytes"])
     return info
 

@@ -33,16 +33,18 @@ blockwise attention, which XLA differentiates).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
 from . import _build, ref
 
 __all__ = ["HEAD_DIMS", "FlashAttention", "attention_backward",
-           "flash_attention", "pad_head_dims", "padded_head_dim", "route",
-           "split_kv"]
+           "attention_flops", "counting", "flash_attention", "pad_head_dims",
+           "padded_head_dim", "route", "split_kv", "visible_pairs"]
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -232,12 +234,80 @@ def attention_backward(q, k, v, out, dout, causal: bool, scale: float,
             dv.to(v.dtype))
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, offset: int) -> int:
+    """(query, key) pairs the attention computes: all sq·sk, or with
+    ``causal`` those with key j <= query i + ``offset``."""
+    if not causal:
+        return sq * sk
+    # row i sees clamp(i + c, 0, sk) keys, c = offset + 1: none before
+    # row lo, i + c from lo to hi, all sk from hi on
+    c = offset + 1
+    lo = min(sq, max(0, 1 - c))
+    hi = min(sq, max(lo, sk - c))
+    return (hi - lo) * c + (lo + hi - 1) * (hi - lo) // 2 + (sq - hi) * sk
+
+
+def attention_flops(q, k, v, causal: bool, offset: int) -> int:
+    """The forward's FLOPs: 2·(D + Dv) per visible (query, key) pair and
+    query head (the two products, s = q·kᵀ and p·v)."""
+    B, H, sq, D = q.shape
+    return 2 * B * H * visible_pairs(sq, k.shape[2], causal, offset) * (
+        D + v.shape[3])
+
+
+@functools.cache
+def _meta_op():
+    """``flash_attention`` as a custom op on meta tensors, for the
+    dry-run's counts (``launch.hlo_analysis``): its output shape, and its
+    FLOPs registered with ``torch.utils.flop_counter`` (the plain
+    version's [Sq, Sk] products would count the masked half and the
+    score matrix the kernel never writes)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::flash_attention_count",
+                             mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           offset: int) -> torch.Tensor:
+        raise NotImplementedError("flash_attention_count takes meta tensors")
+
+    @op.register_fake
+    def _shape(q, k, v, causal, offset):
+        return q.new_empty(q.shape[:3] + v.shape[3:])
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_count,
+                           get_raw=True)
+    def _flops(q, k, v, causal, offset, *args, out_val=None, **kwargs):
+        return attention_flops(q, k, v, causal, offset)
+
+    return op
+
+
+_COUNTING = threading.local()
+
+
+@contextlib.contextmanager
+def counting():
+    """Inside, ``flash_attention`` takes meta tensors: a shape-only
+    custom op whose FLOPs ``torch.utils.flop_counter`` knows (the
+    dry-run's counts); outside, a meta tensor is refused as any device
+    but the CPU's and the card's."""
+    prev = getattr(_COUNTING, "on", False)
+    _COUNTING.on = True
+    try:
+        yield
+    finally:
+        _COUNTING.on = prev
+
+
 def _forward(q, k, v, causal: bool, scale: float, offset: int):
     """The forward: the kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    CPU tensor; on meta tensors inside ``counting()`` a shape-only custom
+    op."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                        offset=offset)
+    if q.device.type == "meta" and getattr(_COUNTING, "on", False):
+        return _meta_op()(q, k, v, causal, offset)
     if q.device.type != "cuda":
         raise ValueError("flash_attention: takes CPU tensors (plain version) "
                          f"or CUDA tensors (the kernel), got {q.device}")

@@ -1,7 +1,8 @@
 """The LM dry-run: place every (architecture × shape × mesh) cell's
-state on a fake process group of 256 or 512 ranks and count what each
-device holds — the LM half of the JAX package's ``launch/dryrun.py``
-(the peel dry-run is ``launch.peel --dryrun``).
+state on a fake process group of 256 or 512 ranks, count what each
+device holds, and run the cell's step there to count what each device
+does — the LM half of the JAX package's ``launch/dryrun.py`` (the peel
+dry-run is ``launch.peel --dryrun``).
 
 A cell resolves the sharding rules (``sharding.partition``) on the
 production mesh (``launch.mesh.make_production_mesh``) and places, as
@@ -13,10 +14,20 @@ batch (``models.input_specs``) under ``batch_shardings``; for
 ``cache_shardings``, the token over the batch axes and the replicated
 length.  ``mem.argument_bytes`` is the exact per-device bytes of all of
 it, summed over rank 0's local shards (every rank's are alike: the rules
-shard only dims that divide).  JAX's record also holds ``flops``,
-``bytes_accessed``, ``collective_bytes`` and the rest of the compiled
-program's memory analysis; the port compiles no program here, so those
-keys are absent.
+shard only dims that divide).
+
+Then the cell's step runs on those meta ``DTensor``s inside
+``sharding.use_mesh`` — ``make_train_step``'s step for ``train`` (the
+bf16 parameters, f32 moments), ``prefill``, or one ``serve_step`` at
+position 0 for ``decode`` — under ``hlo_analysis.count_costs``, which
+records rank 0's local ops: ``flops`` (matrix products and attention,
+per device), ``bytes_accessed`` (every op's inputs and outputs: an
+unfused upper bound, where JAX's is of a fused program),
+``collective_bytes`` by kind (result-shape bytes per device) and
+``mem.output_bytes`` (this rank's share of the step's outputs), with
+``time_count_s``.  What JAX reads from the compiled program and the port
+cannot measure — temporaries, code bytes — is absent, as are the
+per-operand ``bytes accessed`` keys.
 
     python -m repro_torch.launch.dryrun --arch tinyllama_1_1b \\
         --shape train_4k [--multi-pod]
@@ -38,38 +49,81 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun")
 
 
-def _placed_bytes(tree, shardings) -> int:
-    """Places every leaf of ``tree`` under its sharding (leaf by leaf);
-    returns the bytes of this rank's local shards."""
+def _place(tree, shardings):
+    """``tree`` with every leaf placed under its sharding (leaf by leaf),
+    and the bytes of this rank's local shards."""
     from ..sharding import distribute
-    from ..train.tree import tree_leaves
+    from ..train.tree import tree_leaves, tree_unflatten
 
-    total = 0
+    placed, total = [], 0
     for x, sh in zip(tree_leaves(tree), tree_leaves(shardings), strict=True):
-        local = distribute(x, sh).to_local()
+        d = distribute(x, sh)
+        local = d.to_local()
         if tuple(local.shape) != sh.shard_shape(x.shape):
             raise AssertionError(f"{tuple(x.shape)} under {sh.spec}: local "
                                  f"{tuple(local.shape)}, expected "
                                  f"{sh.shard_shape(x.shape)}")
         total += local.numel() * local.element_size()
-    return total
+        placed.append(d)
+    return tree_unflatten(tree, placed), total
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of this rank's share of ``tree``'s tensors."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    out = 0
+    for x in torch.utils._pytree.tree_leaves(tree):
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        if isinstance(x, torch.Tensor):
+            out += x.numel() * x.element_size()
+    return out
+
+
+def _run_cell(cfg, kind: str, microbatches: int, args):
+    """The cell's step on placed meta ``DTensor``s: the train step,
+    prefill or one decode step; returns its outputs."""
+    from .. import models as M
+    from ..train import TrainConfig, make_train_step
+
+    if kind == "train":
+        params, opt, batch = args
+        return make_train_step(cfg, TrainConfig(microbatches=microbatches))(
+            params, opt, batch)
+    if kind == "prefill":
+        params, batch = args
+        return M.prefill(params, batch["tokens"], cfg,
+                         positions=batch.get("positions"),
+                         frames=batch.get("frames"))
+    params, cache, token = args
+    return M.serve_step(params, cache, token["token"], 0, cfg)
 
 
 def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
                 microbatches: int = 1, verbose: bool = True,
                 extra_tags: str = "",
-                cfg_overrides: Optional[Dict] = None) -> Dict:
-    """Place one cell; returns its record.  ``microbatches`` splits the
-    train step's batch in JAX's record; it changes no argument (tags
-    name it)."""
+                cfg_overrides: Optional[Dict] = None,
+                count: bool = True, mesh_shape=None,
+                batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Dict:
+    """Place one cell and (``count``) run its step; returns its record.
+    ``microbatches`` splits the train step's batch.  ``count=False``
+    places the arguments only (``mem.argument_bytes``).  ``mesh_shape``
+    ((dims, names)), ``batch`` and ``seq`` replace the production mesh
+    and the shape set's batch and sequence (a one-card step:
+    ``(((1, 1), ("data", "model")))``)."""
     import torch
 
     from .. import models as M
     from ..configs import get_config
     from ..sharding import (Sharding, batch_shardings, cache_shardings,
-                            param_shardings)
+                            param_shardings, use_mesh)
     from ..train.optimizer import OptState, abstract_opt_state
-    from .mesh import PRODUCTION_MESHES, fake_group, make_production_mesh
+    from .hlo_analysis import collective_bytes, count_costs
+    from .mesh import (PRODUCTION_MESHES, _mesh, fake_group,
+                       make_production_mesh)
 
     cfg = get_config(arch)
     if cfg_overrides:
@@ -79,14 +133,16 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
         return dict(arch=arch, shape=shape, multi_pod=multi_pod,
                     status="skipped", reason=why)
     kind = M.SHAPE_SETS[shape]["kind"]
-    n = math.prod(PRODUCTION_MESHES[multi_pod][0])
+    dims, names = mesh_shape or PRODUCTION_MESHES[multi_pod]
+    n = math.prod(dims)
     t0 = time.time()
     with fake_group(n):
-        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        mesh = (_mesh("cpu", tuple(dims), tuple(names)) if mesh_shape
+                else make_production_mesh(multi_pod=multi_pod, device="cpu"))
         pabs = M.abstract_params(cfg, torch.bfloat16)
         p_sh = param_shardings(M.logical_axes(cfg), pabs, mesh)
         placed = [(pabs, p_sh)]
-        spec = M.input_specs(cfg, shape)
+        spec = M.input_specs(cfg, shape, batch=batch, seq=seq)
         if kind == "train":
             placed.append((abstract_opt_state(pabs), OptState(
                 mu=p_sh, nu=p_sh, step=Sharding(mesh, ()))))
@@ -98,13 +154,31 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
                 (spec["cache"], cache_shardings(spec["cache"], mesh, cfg)),
                 (token, batch_shardings(token, mesh)),
                 (spec["length"], Sharding(mesh, ()))]
-        arg_bytes = sum(_placed_bytes(t, sh) for t, sh in placed)
+        args, sizes = zip(*(_place(t, sh) for t, sh in placed))
+        arg_bytes = sum(sizes)
+        counted = None
+        if count:
+            t1 = time.time()
+            with use_mesh(mesh), count_costs() as cost:
+                out = _run_cell(cfg, kind, microbatches, args[:3])
+            counted = dict(flops=float(cost.flops),
+                           bytes_accessed=float(cost.bytes_accessed),
+                           collective_bytes=collective_bytes(cost.trace),
+                           time_count_s=round(time.time() - t1, 1))
+            out_bytes = _local_bytes(out)
     rec = dict(arch=arch, shape=shape, multi_pod=multi_pod, status="ok",
-               kind=kind, n_devices=n, tags=extra_tags,
-               mem=dict(argument_bytes=arg_bytes))
+               kind=kind, n_devices=n)
+    if counted:
+        rec.update(counted)
+    rec.update(tags=extra_tags, mem=dict(argument_bytes=arg_bytes))
+    if counted:
+        rec["mem"]["output_bytes"] = out_bytes
     if verbose:
+        more = (f"flops={rec['flops']:.3e} bytes={rec['bytes_accessed']:.3e} "
+                f"coll={sum(rec['collective_bytes'].values()):.3e}B "
+                if counted else "")
         print(f"[dryrun] {arch:18s} {shape:12s} "
-              f"{'2pod' if multi_pod else '1pod'} OK "
+              f"{'2pod' if multi_pod else '1pod'} OK {more}"
               f"argument_bytes={arg_bytes} a device of {n} "
               f"({time.time() - t0:.1f} s)", flush=True)
     return rec
@@ -112,7 +186,7 @@ def dryrun_cell(arch: str, shape: str, multi_pod: bool = False,
 
 def run_all(out_path: str, multi_pod_values=(False, True),
             archs=None, shapes=None, resume=True,
-            microbatches: int = 1):
+            microbatches: int = 1, count: bool = True):
     from ..configs import ARCHS
     from ..models import SHAPE_SETS
 
@@ -134,7 +208,7 @@ def run_all(out_path: str, multi_pod_values=(False, True),
                 try:
                     rec = dryrun_cell(arch, shape, multi_pod=mp,
                                       microbatches=microbatches,
-                                      extra_tags=tags)
+                                      extra_tags=tags, count=count)
                 except Exception as e:  # noqa: BLE001 — record, go on
                     traceback.print_exc()
                     rec = dict(arch=arch, shape=shape, multi_pod=mp,
@@ -157,13 +231,16 @@ def main(argv=None):
     ap.add_argument("--multi-pod-only", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--no-count", action="store_true",
+                    help="place the arguments only (no step, no counts)")
     args = ap.parse_args(argv)
 
     out = args.out or os.path.abspath(
         os.path.join(RESULTS_DIR, "torch_results.json"))
     if args.arch and args.shape:
         rec = dryrun_cell(args.arch, args.shape, multi_pod=args.multi_pod,
-                          microbatches=args.microbatches)
+                          microbatches=args.microbatches,
+                          count=not args.no_count)
         print(json.dumps(rec, indent=2))
         return
     mp_vals = (False, True)
@@ -174,7 +251,7 @@ def main(argv=None):
     archs = [args.arch] if args.arch else None
     shapes = [args.shape] if args.shape else None
     run_all(out, mp_vals, archs, shapes,
-            microbatches=args.microbatches)
+            microbatches=args.microbatches, count=not args.no_count)
 
 
 if __name__ == "__main__":

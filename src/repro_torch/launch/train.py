@@ -18,6 +18,20 @@ batches the crashed one would have.  Fault tolerance: checkpoints every
 package's), auto-resume from the latest complete checkpoint, straggler
 detection via step-time z-score, crash injection (``--crash-at`` exits
 42) for the restart test.
+
+Launched by ``torch.distributed.run`` (``WORLD_SIZE`` > 1), the run is
+sharded as the JAX CLI's under its local mesh: the process group opens
+(``launch.mesh.init_peel_group``: NCCL on ``cuda``, one rank a card;
+gloo on ``cpu``), ``make_local_mesh`` builds the ``("data", "model")``
+mesh, the parameters are placed by ``param_shardings``, AdamW's moments
+with them, and each step's batch by ``batch_shardings``; rank 0 prints.
+Every rank draws the same weights and batches.  A single process runs
+on plain tensors, as before::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch tinyllama_1_1b --reduced --steps 4 --batch 4 --seq 32 \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -48,11 +62,21 @@ def train(args) -> dict:
         cfg = reduced(cfg)
     if args.seq:
         cfg = dataclasses.replace(cfg, max_seq=args.seq)
-    dev = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from .mesh import init_peel_group, make_local_mesh
+
+        dev = init_peel_group(args.device)
+        mesh = make_local_mesh(dev.type)
+    else:
+        dev = resolve_device(args.device)
+    say = print if mesh is None or mesh.get_rank() == 0 else _quiet
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev, torch.float32)
     opt = adamw_init(params)
+    if mesh is not None:
+        params, opt = _place_state(cfg, params, opt, mesh)
     tcfg = TrainConfig(
         microbatches=args.microbatches,
         opt=AdamWConfig(lr=args.lr, total_steps=args.steps),
@@ -65,7 +89,7 @@ def train(args) -> dict:
         if s is not None:
             params, opt, _ = restore_checkpoint(args.ckpt_dir, s, params, opt)
             start = s
-            print(f"[train] resumed from step {s}", flush=True)
+            say(f"[train] resumed from step {s}", flush=True)
 
     dcfg = DataConfig(batch=args.batch, seq=args.seq or cfg.max_seq,
                       vocab=cfg.vocab, seed=args.seed)
@@ -77,23 +101,29 @@ def train(args) -> dict:
     losses, seconds = [], []
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        if mesh is not None:
+            from ..sharding import batch_shardings, distribute
+            from ..train.tree import tree_map
+
+            batch = tree_map(distribute, batch, batch_shardings(batch, mesh))
         t0 = time.perf_counter()
         det.start()
         params, opt, metrics = step_fn(params, opt, batch)
-        loss = float(metrics["loss"])
+        loss = float(_whole(metrics["loss"]))
         straggler = det.stop()
         seconds.append(time.perf_counter() - t0)
         if straggler:
-            print(f"[train] straggler step {step} detected", flush=True)
+            say(f"[train] straggler step {step} detected", flush=True)
         losses.append(loss)
         if step % args.log_every == 0:
-            print(f"[train] step {step} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
+            say(f"[train] step {step} loss {loss:.4f} "
+                f"gnorm {float(_whole(metrics['grad_norm'])):.3f}",
+                flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             save_checkpoint(args.ckpt_dir, step + 1, params, opt,
                             extra=dict(arch=cfg.name))
         if args.crash_at is not None and step + 1 == args.crash_at:
-            print("[train] injected crash", flush=True)
+            say("[train] injected crash", flush=True)
             os._exit(42)
 
     if args.ckpt_dir:
@@ -101,10 +131,40 @@ def train(args) -> dict:
                         extra=dict(arch=cfg.name))
     first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
     last = np.mean(losses[-5:])
-    print(f"[train] done: loss {first:.4f} -> {last:.4f} "
-          f"({len(losses)} steps, stragglers={det.flagged})", flush=True)
+    say(f"[train] done: loss {first:.4f} -> {last:.4f} "
+        f"({len(losses)} steps, stragglers={det.flagged})", flush=True)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return dict(losses=losses, step_seconds=seconds, start=start,
                 stragglers=det.flagged, cfg=cfg, params=params)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on ranks other than 0: nothing."""
+
+
+def _whole(x):
+    """A metric as a plain tensor (a ``DTensor`` gathered whole)."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _place_state(cfg, params, opt, mesh):
+    """Parameters placed by ``param_shardings`` on ``mesh``, AdamW's
+    moments with them and its step replicated (the JAX CLI's placement)."""
+    from ..models import logical_axes
+    from ..sharding import Sharding, distribute, param_shardings
+    from ..train import OptState
+    from ..train.tree import tree_map
+
+    p_sh = param_shardings(logical_axes(cfg), params, mesh)
+    return tree_map(distribute, params, p_sh), OptState(
+        mu=tree_map(distribute, opt.mu, p_sh),
+        nu=tree_map(distribute, opt.nu, p_sh),
+        step=distribute(opt.step, Sharding(mesh, ())))
 
 
 def batch_extra(cfg, batch: int, seq: int):

@@ -41,7 +41,9 @@ from torch.utils import checkpoint
 
 from .config import ModelConfig
 from . import ssm as S
-from .layers import blockwise_attention, mlp, mrope_positions, rms_norm
+from .layers import (DP_AXES, _is_dtensor, batch_placements, blockwise_attention,
+                     constrain, copy_state, mlp, mrope_positions, replicated,
+                     rms_norm)
 from .transformer import (_heads, _out, attention, attention_decode,
                           decoder_block, decoder_block_decode)
 from ..kernels.ref import matmul_f32
@@ -437,16 +439,39 @@ def _positions(cfg: ModelConfig, b: int, s: int, device) -> torch.Tensor:
     return mrope_positions(pos) if cfg.rope_type == "mrope" else pos
 
 
+def _gather_rows(w, tokens):
+    """``w[tokens]``; on a ``DTensor`` table each rank gathers its own
+    batch rows from the whole table (``local_map``: the same indexing as
+    one device, its gradient summed over the data axes)."""
+    if not _is_dtensor(w):
+        return w[tokens]
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, replicated(mesh),
+                                    run_check=False)
+    rows = batch_placements(mesh, tokens.shape[0])
+    return local_map(
+        lambda wl, tl: wl[tl], out_placements=rows,
+        in_placements=(replicated(mesh), rows),
+        in_grad_placements=(batch_placements(mesh, tokens.shape[0],
+                                             grad=True), rows),
+        device_mesh=mesh, redistribute_inputs=True)(w, tokens)
+
+
 def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = _gather_rows(params["embed"], tokens)
     if cfg.scale_embedding:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return x
+    return constrain(x, (DP_AXES,) + (None,) * (x.ndim - 1))
 
 
 def _unembed(params, x, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return matmul_f32(x, w)
+    out = matmul_f32(x, w)
+    return constrain(out, (DP_AXES,) + (None,) * (out.ndim - 2) + ("model",))
 
 
 @functools.lru_cache(maxsize=16)
@@ -503,8 +528,13 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return remat
 
 
+_ACT = (DP_AXES, None, None)  # a backbone layer's output: batch over data
+_TOK = (DP_AXES, None)        # a decode step's token activations
+
+
 def _mlstm_layer(h, p, cfg: ModelConfig):
-    return h + S.mlstm_mix(rms_norm(h, p["norm"], cfg.norm_eps), p, cfg)
+    return constrain(
+        h + S.mlstm_mix(rms_norm(h, p["norm"], cfg.norm_eps), p, cfg), _ACT)
 
 
 def _mamba_layer(h, p, cfg: ModelConfig):
@@ -512,11 +542,15 @@ def _mamba_layer(h, p, cfg: ModelConfig):
 
 
 def _shared_block(h, shared, cfg: ModelConfig, positions):
-    """Zamba2's shared attention block (pre-norm attention, then MLP)."""
+    """Zamba2's shared attention block (pre-norm attention, then MLP);
+    on ``DTensor``s its input and branches constrained as
+    ``decoder_block``'s."""
+    h = constrain(h, _ACT)
     a = rms_norm(h, shared["norm1"], cfg.norm_eps)
-    h = h + attention(a, shared["attn"], cfg, positions, causal=True)
+    h = h + constrain(attention(a, shared["attn"], cfg, positions,
+                                causal=True), _ACT)
     f = rms_norm(h, shared["norm2"], cfg.norm_eps)
-    return h + mlp(f, shared["ffn"], cfg.mlp_type)
+    return h + constrain(mlp(f, shared["ffn"], cfg.mlp_type), _ACT)
 
 
 def _whisper_encode(params, frames, cfg: ModelConfig, layers=None):
@@ -551,13 +585,16 @@ def _cross_attention(x, p, cfg: ModelConfig, memory):
 
 def _whisper_layer(h, p, cfg: ModelConfig, positions, enc_out):
     """One decoder layer: causal self-attention, then ``norm_x`` and
-    cross-attention to ``enc_out``, then ``norm2`` and the MLP."""
+    cross-attention to ``enc_out``, then ``norm2`` and the MLP (on
+    ``DTensor``s each branch constrained, as ``decoder_block``'s)."""
     a = rms_norm(h, p["norm1"], cfg.norm_eps)
-    h = h + attention(a, p["attn"], cfg, positions, causal=True)
+    h = h + constrain(attention(a, p["attn"], cfg, positions, causal=True),
+                      _ACT)
     cx = rms_norm(h, p["norm_x"], cfg.norm_eps)
-    h = h + _cross_attention(cx, p["cross"], cfg, enc_out)
+    h = h + constrain(_cross_attention(cx, p["cross"], cfg, enc_out), _ACT)
     f = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp(f, p["ffn"], cfg.mlp_type)
+    return constrain(h + constrain(mlp(f, p["ffn"], cfg.mlp_type), _ACT),
+                     _ACT)
 
 
 def _whisper_decode_train(params, x, cfg: ModelConfig, positions, enc_out,
@@ -590,15 +627,17 @@ def _backbone(params, layers, x, cfg: ModelConfig, positions, enc_out=None):
             for p in gp["mlstm"]:
                 x = body(x, p)
             sp = gp["slstm"]
-            x = x + S.slstm_mix(rms_norm(x, sp["norm"], cfg.norm_eps), sp,
-                                cfg)
+            x = constrain(x + S.slstm_mix(rms_norm(x, sp["norm"],
+                                                   cfg.norm_eps), sp, cfg),
+                          _ACT)
     elif cfg.family == "audio":
         x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
         x = _whisper_decode_train(params, x, cfg, positions, enc_out, layers)
     else:
-        plain = _maybe_remat(lambda h, p: _mamba_layer(h, p, cfg), cfg)
-        with_attn = _maybe_remat(lambda h, p, shared: _shared_block(
-            _mamba_layer(h, p, cfg), shared, cfg, positions), cfg)
+        plain = _maybe_remat(
+            lambda h, p: constrain(_mamba_layer(h, p, cfg), _ACT), cfg)
+        with_attn = _maybe_remat(lambda h, p, shared: constrain(_shared_block(
+            _mamba_layer(h, p, cfg), shared, cfg, positions), _ACT), cfg)
         for i, p in enumerate(layers):
             x = (with_attn(x, p, params["shared_attn"])
                  if (i + 1) % cfg.attn_every == 0 else plain(x, p))
@@ -680,7 +719,7 @@ def serve_step(params, cache: Dict, token, length: int, cfg: ModelConfig):
 def _write(views, values) -> None:
     """New recurrent states into their cache slots, in place."""
     for t, v in zip(views, values):
-        t.copy_(v)
+        copy_state(t, v)
 
 
 def _decode_decoder(params, layers, cache, x, length, cfg: ModelConfig):
@@ -698,12 +737,12 @@ def _decode_xlstm(params, layers, cache, x, length, cfg: ModelConfig):
             st = (cache["mlstm_S"][g, m], cache["mlstm_n"][g, m])
             y, new = S.mlstm_step(rms_norm(x, p["norm"], eps), st, p, cfg)
             _write(st, new)
-            x = x + y
+            x = x + constrain(y, _TOK)
         sp = gp["slstm"]
         st = tuple(cache[f"slstm_{k}"][g] for k in "hcn")
         y, new = S.slstm_step(rms_norm(x, sp["norm"], eps), st, sp, cfg)
         _write(st, new)
-        x = x + y
+        x = x + constrain(y, _TOK)
     return x
 
 
@@ -713,16 +752,17 @@ def _decode_zamba(params, layers, cache, x, length, cfg: ModelConfig):
         st = (cache["conv"][i], cache["S"][i])
         y, new = S.mamba2_step(rms_norm(x, p["norm"], eps), st, p, cfg)
         _write(st, new)
-        x = x + y
+        x = x + constrain(y, _TOK)
         if (i + 1) % cfg.attn_every == 0:
             a = (i + 1) // cfg.attn_every - 1
             h = rms_norm(x, shared["norm1"], eps)
             h, _ = attention_decode(h, shared["attn"], cfg,
                                     (cache["attn_k"][a], cache["attn_v"][a]),
                                     length)
-            x = x + h
+            x = x + constrain(h, _TOK)
             f = rms_norm(x, shared["norm2"], eps)
-            x = x + mlp(f[:, None], shared["ffn"], cfg.mlp_type)[:, 0]
+            x = x + constrain(mlp(f[:, None], shared["ffn"],
+                                  cfg.mlp_type)[:, 0], _TOK)
     return x
 
 
@@ -738,11 +778,13 @@ def _decode_whisper(params, layers, cache, x, length, cfg: ModelConfig):
         a = rms_norm(x, p["norm1"], eps)
         a, _ = attention_decode(a, p["attn"], cfg,
                                 (cache["k"][i], cache["v"][i]), length)
-        x = x + a
+        x = x + constrain(a, _TOK)
         cx = rms_norm(x, p["norm_x"], eps)
-        x = x + _cross_attention(cx[:, None], p["cross"], cfg, enc_out)[:, 0]
+        x = x + constrain(_cross_attention(cx[:, None], p["cross"], cfg,
+                                           enc_out)[:, 0], _TOK)
         f = rms_norm(x, p["norm2"], eps)
-        x = x + mlp(f[:, None], p["ffn"], cfg.mlp_type)[:, 0]
+        x = x + constrain(mlp(f[:, None], p["ffn"], cfg.mlp_type)[:, 0],
+                          _TOK)
     return x
 
 

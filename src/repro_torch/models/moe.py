@@ -16,8 +16,7 @@ JAX package's:
 
 The router and its softmax run in f32; the expert products are batched
 full-f32 products (``ref.matmul_f32``: [E, b·C, d] by [E, d, f]), as
-every other product of the port's LM.  ``constrain`` (expert-parallel
-sharding) has no counterpart on one device.
+every other product of the port's LM.
 """
 from __future__ import annotations
 
@@ -28,10 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import mlp
+from .layers import (DP_AXES, _is_dtensor, batch_placements, constrain, mlp,
+                     replicated)
 from ..kernels.ref import matmul_f32
 
-__all__ = ["capacity", "moe_layer", "route"]
+__all__ = ["capacity", "combine", "dispatch", "moe_layer", "route"]
 
 
 def capacity(cfg: ModelConfig, group_tokens: int) -> int:
@@ -65,17 +65,18 @@ def _experts(eb: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(E, b, C, d).transpose(0, 1)
 
 
-def moe_layer(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """x: [b, s, d] -> [b, s, d].  p: router, we1/we3/we2, shared."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """The group-local dispatch of x [b, s, d] (everything batched over
+    b): the expert buffer eb [b, E, C, d] and what the combine needs —
+    (eb, slot, keep, order, gates)."""
     b, s, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, s)
     sk = s * k
     dev = x.device
 
-    gates, idx = route(x, p["router"], cfg)
+    gates, idx = route(x, router, cfg)
 
-    # ---- group-local dispatch (everything batched over b)
     e_flat = idx.reshape(b, sk)
     order = torch.argsort(e_flat, dim=1, stable=True)          # [b, sk]
     e_sorted = torch.gather(e_flat, 1, order)
@@ -92,20 +93,72 @@ def moe_layer(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     buf.index_add_(0, (rows * (E * C + 1) + slot).reshape(-1),
                    x_sorted.reshape(-1, d))
     eb = buf.view(b, E * C + 1, d)[:, :-1].reshape(b, E, C, d)
-    del buf, x_sorted
+    return eb, slot, keep, order, gates
 
-    out_e = _experts(eb, p, cfg)
 
-    # ---- combine (undo the sort, weight by the gates)
+def _combine(out_e, slot, keep, order, gates, k: int, dtype) -> torch.Tensor:
+    """Undo the sort and weight by the gates: out_e [b, E, C, d] ->
+    [b, s, d] in ``dtype`` (x's)."""
+    b, E, C, d = out_e.shape
+    sk = order.shape[1]
+    dev = out_e.device
+    rows = torch.arange(b, device=dev)[:, None]
     flat = torch.cat([out_e.reshape(b, E * C, d),
-                      torch.zeros((b, 1, d), dtype=x.dtype, device=dev)], 1)
+                      torch.zeros((b, 1, d), dtype=dtype, device=dev)], 1)
     del out_e
-    picked = flat[rows, slot] * keep[..., None].to(x.dtype)    # [b, sk, d]
+    picked = flat[rows, slot] * keep[..., None].to(dtype)      # [b, sk, d]
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(sk, device=dev).expand(b, sk).contiguous())
-    per_tk = picked[rows, inv].reshape(b, s, k, d)
-    out = matmul_f32(gates.to(x.dtype)[:, :, None], per_tk)[:, :, 0]
+    per_tk = picked[rows, inv].reshape(b, sk // k, k, d)
+    return matmul_f32(gates.to(dtype)[:, :, None], per_tk)[:, :, 0]
 
+
+def dispatch(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """``moe_layer``'s dispatch of x [b, s, d]: (eb, slot, keep, order,
+    gates).  On ``DTensor``s each rank routes its own groups (batch rows;
+    the router whole on every rank, its gradient summed over the data
+    axes), so every integer equals the unsharded dispatch's."""
+    if not _is_dtensor(x):
+        return _dispatch(x, router, cfg)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = batch_placements(mesh, x.shape[0])
+    return local_map(
+        lambda xl, rl: _dispatch(xl, rl, cfg), out_placements=(rows,) * 5,
+        in_placements=(rows, replicated(mesh)),
+        in_grad_placements=(rows, batch_placements(mesh, x.shape[0],
+                                                   grad=True)),
+        device_mesh=mesh, redistribute_inputs=True)(x, router)
+
+
+def combine(out_e, slot, keep, order, gates, k: int, dtype):
+    """``moe_layer``'s combine of the experts' outputs out_e [b, E, C,
+    d] -> [b, s, d]; on ``DTensor``s each rank combines its own groups,
+    every expert's rows gathered to it."""
+    if not _is_dtensor(out_e):
+        return _combine(out_e, slot, keep, order, gates, k, dtype)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = out_e.device_mesh
+    rows = batch_placements(mesh, out_e.shape[0])
+    return local_map(
+        lambda *a: _combine(*a, k, dtype), out_placements=rows,
+        in_placements=(rows,) * 5, device_mesh=mesh,
+        redistribute_inputs=True)(out_e, slot, keep, order, gates)
+
+
+def moe_layer(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """x: [b, s, d] -> [b, s, d].  p: router, we1/we3/we2, shared.  On
+    ``DTensor``s (a sharded step) the dispatch and the combine run on
+    each rank's groups (``local_map``), and the expert buffers shard
+    groups over the data axes and experts over ``"model"`` (EP), as the
+    JAX package constrains them."""
+    eb, slot, keep, order, gates = dispatch(x, p["router"], cfg)
+    eb = constrain(eb, (DP_AXES, "model", None, None))
+    out = combine(
+        constrain(_experts(eb, p, cfg), (DP_AXES, "model", None, None)),
+        slot, keep, order, gates, cfg.top_k, x.dtype)
     if cfg.n_shared_experts:
         out = out + mlp(x, p["shared"], cfg.mlp_type)
     return out

@@ -19,12 +19,16 @@ do; the model writes them into its cache.
 """
 from __future__ import annotations
 
+import functools
+
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ref import matmul_f32
+from .layers import (_is_dtensor, batch_placements, merge_heads, replicated,
+                     whole_parts)
 
 __all__ = [
     "chunked_recurrence",
@@ -68,7 +72,11 @@ def chunked_recurrence(
     """y [b, h, s, dv] (f32) of the recurrence over chunks of
     ``min(chunk, s)`` steps; ``s`` must be a multiple of it.  ``unroll``
     (JAX's cost-analysis mode) changes nothing here: the inter-chunk
-    scan is a Python loop either way."""
+    scan is a Python loop either way.  On ``DTensor``s each rank runs it
+    on its own batch rows and heads (``_per_head``)."""
+    if _is_dtensor(q):
+        return _per_head(functools.partial(chunked_recurrence, chunk=chunk),
+                         (q, k, v, decay, gain), (), 1, 1)
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     L = min(chunk, s)
@@ -147,7 +155,7 @@ def mamba2_mix(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     z, xin, B, C, dt, decay, nh, dh = _mamba_parts(x, p, cfg)
     # causal depthwise conv on the x-branch (width ssm_conv)
     xin = _causal_conv(xin, p["conv_w"])
-    xh = xin.reshape(b, s, nh, dh)
+    xh = whole_parts(xin, -1, nh).reshape(b, s, nh, dh)
     v = (dt[..., None] * xh.to(_F32)).transpose(1, 2)
     k = B[:, None].to(_F32).expand(b, nh, s, cfg.ssm_state)
     q = C[:, None].to(_F32).expand(b, nh, s, cfg.ssm_state)
@@ -156,7 +164,7 @@ def mamba2_mix(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
         torch.ones_like(decay).transpose(1, 2), chunk=cfg.ssm_chunk,
         unroll=cfg.unroll_layers)                          # [b,nh,s,dh]
     y = y + p["D"][None, :, None, None] * xh.transpose(1, 2)
-    y = y.transpose(1, 2).reshape(b, s, nh * dh)
+    y = merge_heads(y.transpose(1, 2))
     y = y * F.silu(z.to(_F32))
     return _mm(y.to(x.dtype), p["out_proj"])
 
@@ -173,7 +181,7 @@ def mamba2_step(x, state, p, cfg):
     conv_buf = torch.cat([conv_buf[:, 1:].to(dt_buf),
                           xin[:, None].to(dt_buf)], dim=1)
     xin = F.silu(torch.sum(conv_buf * p["conv_w"], dim=1))
-    xh = xin.reshape(b, nh, dh)
+    xh = whole_parts(xin, -1, nh).reshape(b, nh, dh)
     v = dt[..., None] * xh.to(_F32)
     k = B[:, None].to(_F32).expand(b, nh, cfg.ssm_state)
     q = C[:, None].to(_F32).expand(b, nh, cfg.ssm_state)
@@ -185,7 +193,12 @@ def mamba2_step(x, state, p, cfg):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, width w.shape[0]; x: [b, s, c]."""
+    """Depthwise causal conv, width w.shape[0]; x: [b, s, c].  On
+    ``DTensor``s each rank convolves its own rows and, where they divide
+    ``"model"``, channels (``_per_head`` with the channels as heads)."""
+    if _is_dtensor(x):
+        return _per_head(lambda xl, wl: _causal_conv(xl, wl.T).contiguous(),
+                         (x,), (w.T,), 2, 2)
     width, s = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, width - 1, 0))
     out = 0
@@ -201,7 +214,7 @@ def _mlstm_proj(x, p, cfg):
     nh = cfg.n_heads
     dh = cfg.lstm_proj_factor * cfg.d_model // nh
     xi, z = torch.chunk(_mm(x, p["up_proj"]), 2, dim=-1)
-    q, k, v = (_mm(xi, p[w]).unflatten(-1, (nh, dh))
+    q, k, v = (whole_parts(_mm(xi, p[w]), -1, nh).unflatten(-1, (nh, dh))
                for w in ("wq", "wk", "wv"))
     f, i = torch.chunk(_mm(xi, p["wg"]).to(_F32), 2, dim=-1)
     return q, k, v, f, i, z, dh
@@ -225,7 +238,7 @@ def mlstm_mix(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
                            decay, gain, chunk=cfg.ssm_chunk,
                            unroll=cfg.unroll_layers)
     y = y / _max(torch.abs(n), 1.0)
-    y = y.transpose(1, 2).reshape(b, s, nh * dh)
+    y = merge_heads(y.transpose(1, 2))
     y = y.to(x.dtype) * F.silu(z)
     return _mm(y, p["down_proj"])
 
@@ -261,18 +274,61 @@ def _slstm_cell(g, h, c, n, R):
     return h, c, n
 
 
+def _slstm_scan(gx: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """The sLSTM time loop over gx [b, s, nh, 4·dh]: h [b, s, nh, dh]
+    (f32) from zero states."""
+    b, s, nh, _ = gx.shape
+    h = c = n = torch.zeros((b, nh, R.shape[1]), dtype=_F32, device=gx.device)
+    hs = []
+    for t in range(s):
+        h, c, n = _slstm_cell(gx[:, t], h, c, n, R)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _per_head(fn, acts, weights, head_dim: int, out_head_dim: int):
+    """``fn(*acts, *weights)`` on ``DTensor``s through ``local_map``: each
+    rank runs it on its own batch rows (dim 0 of every activation) and,
+    where the head count (dim ``head_dim`` of the activations, dim 0 of
+    the per-head weights) divides ``"model"``, its own heads, so a
+    recurrence's many small ops are local ones.  The weights' gradients
+    are summed over the data axes.  A plain tensor among ``acts`` (the
+    same on every rank) is taken as replicated."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = acts[0].device_mesh
+    acts = tuple(a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, replicated(mesh), run_check=False) for a in acts)
+    names = mesh.mesh_dim_names
+    nh, b = acts[0].shape[head_dim], acts[0].shape[0]
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    heads = m > 1 and nh % m == 0
+
+    def pl(base, dim):
+        return [Shard(dim) if a == "model" and heads else p
+                for a, p in zip(names, base)]
+
+    rows = batch_placements(mesh, b)
+    wgrad = batch_placements(mesh, b, grad=True)
+    return local_map(
+        fn, out_placements=pl(rows, out_head_dim),
+        in_placements=((pl(rows, head_dim),) * len(acts)
+                       + (pl(replicated(mesh), 0),) * len(weights)),
+        in_grad_placements=((pl(rows, head_dim),) * len(acts)
+                            + (pl(wgrad, 0),) * len(weights)),
+        device_mesh=mesh, redistribute_inputs=True)(*acts, *weights)
+
+
 def slstm_mix(x: torch.Tensor, p: dict, cfg) -> torch.Tensor:
     """sLSTM: scalar-memory LSTM with per-head recurrence (a loop over
     time: inherently sequential, as in the paper)."""
     b, s, _ = x.shape
     nh, dh, _ = p["R"].shape
-    gx = _mm(x, p["W"]).reshape(b, s, nh, 4 * dh)        # [b,s,nh,4·dh]
-    h = c = n = torch.zeros((b, nh, dh), dtype=_F32, device=x.device)
-    hs = []
-    for t in range(s):
-        h, c, n = _slstm_cell(gx[:, t], h, c, n, p["R"])
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, s, nh * dh).to(x.dtype)
+    gx = whole_parts(_mm(x, p["W"]), -1, nh).reshape(b, s, nh, 4 * dh)
+    y = (_per_head(_slstm_scan, (gx,), (p["R"],), 2, 2) if _is_dtensor(gx)
+         else _slstm_scan(gx, p["R"]))
+    y = merge_heads(y).to(x.dtype)
     return _mm(y, p["out"])
 
 
@@ -280,7 +336,7 @@ def slstm_step(x, state, p, cfg):
     h, c, n = state
     b = x.shape[0]
     nh, dh, _ = p["R"].shape
-    g = _mm(x, p["W"]).reshape(b, nh, 4 * dh)
+    g = whole_parts(_mm(x, p["W"]), -1, nh).reshape(b, nh, 4 * dh)
     h, c, n = _slstm_cell(g, h, c, n, p["R"])
     y = h.reshape(b, nh * dh).to(x.dtype)
     return _mm(y, p["out"]), (h, c, n)

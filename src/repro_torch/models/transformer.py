@@ -7,7 +7,9 @@ The port of the JAX package's ``models/transformer.py``.  Functional:
 variants write the new token's key and value (MLA: its compressed
 ``ckv`` row) into the cache tensors they are given, in place (the JAX
 versions return an updated copy), and return them; a position outside
-the cache raises (JAX's ``dynamic_update_slice`` would clamp it).
+the cache raises (JAX's ``dynamic_update_slice`` would clamp it).  On a
+``DTensor`` cache (a sharded step) the write lands in the local shard of
+the rank that holds the slot (``layers.write_slot``).
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ from typing import Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import (apply_rope, blockwise_attention, decode_attention, mlp,
-                     rms_norm)
+from .layers import (DP_AXES, _is_dtensor, apply_rope, blockwise_attention,
+                     constrain, decode_attention, merge_heads, mlp, rms_norm,
+                     whole_parts, write_slot)
 from .moe import moe_layer
 from ..kernels.ref import matmul_f32
 
@@ -36,7 +39,8 @@ __all__ = [
 def _heads(x, w, n, hd):
     """[b, s, d] @ [d, n·hd] -> [b, n, s, hd] (a transposed view)."""
     b, s, _ = x.shape
-    return matmul_f32(x, w).reshape(b, s, n, hd).transpose(1, 2)
+    return whole_parts(matmul_f32(x, w), -1, n).reshape(
+        b, s, n, hd).transpose(1, 2)
 
 
 def _qkv(x, p, cfg: ModelConfig):
@@ -53,7 +57,14 @@ def _rope(t, positions, cfg: ModelConfig):
 
 def _out(o, p):
     b, _, s, _ = o.shape
-    return matmul_f32(o.transpose(1, 2).reshape(b, s, -1), p["wo"])
+    if s == 1 and _is_dtensor(o):
+        # the same values: a DTensor would keep the transpose's strides,
+        # with which matmul takes a batched product where the plain path
+        # folds into one mm
+        o = o.reshape(b, 1, -1)
+    else:
+        o = merge_heads(o.transpose(1, 2))
+    return matmul_f32(o, p["wo"])
 
 
 def attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -88,8 +99,8 @@ def attention_decode(
     q, k, v = _qkv(x[:, None], p, cfg)
     q = _rope(q, pos, cfg)
     k = _rope(k, pos, cfg)
-    k_cache[:, :, length] = k[:, :, 0]
-    v_cache[:, :, length] = v[:, :, 0]
+    write_slot(k_cache, 2, length, k[:, :, 0])
+    write_slot(v_cache, 2, length, v[:, :, 0])
     o = decode_attention(q, k_cache, v_cache, length + 1)
     return matmul_f32(o.reshape(b, -1), p["wo"]), (k_cache, v_cache)
 
@@ -148,7 +159,7 @@ def _mla_decode_q(x, p, cfg: ModelConfig, cache, length):
     ckv = matmul_f32(xq, p["kv_down"])[:, 0]
     kr = apply_rope(ckv[:, None, None, lora:], pos, "full",
                     cfg.rope_theta)[:, 0, 0]
-    cache[:, length] = torch.cat([ckv[..., :lora], kr], dim=-1)
+    write_slot(cache, 1, length, torch.cat([ckv[..., :lora], kr], dim=-1))
     return q_nope, q_rope
 
 
@@ -209,19 +220,33 @@ def ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 
 # -------------------------------------------------------- decoder block
 def decoder_block(x, p, cfg: ModelConfig, positions, causal=True):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; its input and output constrained to
+    batch over the data axes (and, with ``cfg.seq_shard``, sequence over
+    ``"model"``), as the JAX package constrains them.  On ``DTensor``s the
+    attention and FFN outputs are constrained too: a row-parallel product
+    (heads or mlp over ``"model"``) leaves a pending sum (``Partial``),
+    which ``DTensor`` would carry through the next norm and then replicate
+    the next weights to keep; the constraint reduces it where GSPMD
+    would."""
+    act_spec = (DP_AXES, "model" if cfg.seq_shard else None, None)
+    x = constrain(x, act_spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.is_mla:
-        x = x + mla_attention(h, p["attn"], cfg, positions)
+        h = mla_attention(h, p["attn"], cfg, positions)
     else:
-        x = x + attention(h, p["attn"], cfg, positions, causal=causal)
+        h = attention(h, p["attn"], cfg, positions, causal=causal)
+    x = x + constrain(h, act_spec)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn(h, p["ffn"], cfg)
+    return constrain(x + constrain(ffn(h, p["ffn"], cfg), act_spec), act_spec)
 
 
 def decoder_block_decode(x, p, cfg: ModelConfig, cache, length):
     """One token through a block; ``cache`` is (k, v) [b, kv, S, hd], or
-    for MLA the ckv tensor [b, S, lora + dr]."""
+    for MLA the ckv tensor [b, S, lora + dr].  The token's activations are
+    constrained to batch over the data axes (the branches' outputs too,
+    as in ``decoder_block``)."""
+    act = (DP_AXES, None)
+    x = constrain(x, act)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.is_mla and cfg.mla_absorb:
         h, cache = mla_attention_decode_absorbed(h, p["attn"], cfg, cache,
@@ -230,6 +255,6 @@ def decoder_block_decode(x, p, cfg: ModelConfig, cache, length):
         h, cache = mla_attention_decode(h, p["attn"], cfg, cache, length)
     else:
         h, cache = attention_decode(h, p["attn"], cfg, cache, length)
-    x = x + h
+    x = x + constrain(h, act)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn(h[:, None], p["ffn"], cfg)[:, 0], cache
+    return x + constrain(ffn(h[:, None], p["ffn"], cfg)[:, 0], act), cache

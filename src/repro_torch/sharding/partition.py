@@ -23,11 +23,16 @@ function takes a mesh through its ``shape`` and ``mesh_dim_names``, so a
 one ``Shard(dim)`` / ``Replicate()`` a mesh dim: a dim over several mesh
 axes is ``Shard(dim)`` on each, which ``DTensor`` splits in mesh-dim
 order (pod-major for ``("pod", "data")``), as JAX does.
+
+:func:`use_mesh` is the counterpart of the JAX package's ``set_mesh``:
+the mesh ``models.layers.constrain`` reads while a sharded step runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 from ..train.tree import tree_items, tree_map, tree_unflatten
@@ -43,6 +48,8 @@ __all__ = [
     "cache_shardings",
     "data_axes",
     "distribute",
+    "use_mesh",
+    "current_mesh",
 ]
 
 LOGICAL_RULES: Dict[str, Optional[str]] = {
@@ -113,11 +120,16 @@ def placements(spec: tuple, mesh) -> list:
     """One ``DTensor`` placement a mesh dim for ``spec``: ``Shard(d)`` on
     each mesh dim that tensor dim d's entry names, ``Replicate()`` on the
     others.  An entry of several axes must name them in mesh-dim order
-    (``DTensor``'s split order), and no axis may shard two dims."""
+    (``DTensor``'s split order), and no axis may shard two dims.  A mesh
+    dim of size 1 is ``Replicate()`` whatever the spec: the same layout,
+    and ``DTensor`` cannot reshape a size-1 tensor dim it calls sharded
+    (a batch of 1 on the (1, 1) mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names)
+    ones = {a for a, n in _sizes(mesh).items() if n == 1}
     out: list = [Replicate()] * len(names)
+    used = set()
     for dim, entry in enumerate(spec):
         idx = []
         for ax in _entry_axes(entry):
@@ -125,11 +137,12 @@ def placements(spec: tuple, mesh) -> list:
                 raise ValueError(f"spec {spec} names {ax!r}, not an axis of "
                                  f"the mesh {names}")
             i = names.index(ax)
-            if isinstance(out[i], Shard):
+            if ax in used:
                 raise ValueError(f"spec {spec} uses the mesh axis {ax!r} "
                                  "twice")
+            used.add(ax)
             idx.append(i)
-            out[i] = Shard(dim)
+            out[i] = Replicate() if ax in ones else Shard(dim)
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: dim {dim} spans {entry} out of "
                              f"the mesh's order {names}")
@@ -158,6 +171,34 @@ class Sharding:
                                  f"divide {n} ({entry})")
             out[dim] //= n
         return tuple(out)
+
+
+_CURRENT = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the current mesh in this thread
+    for the block, as JAX's ``set_mesh``: ``models.layers.constrain``
+    redistributes activations against it.  Inside, a plain tensor that
+    meets a ``DTensor`` is taken as replicated on its mesh
+    (``implicit_replication``): positions, masks and tables the model
+    makes with ``torch.arange`` are the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    stack = _CURRENT.__dict__.setdefault("stack", [])
+    stack.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        stack.pop()
+
+
+def current_mesh():
+    """The innermost :func:`use_mesh` mesh of this thread, or None."""
+    stack = getattr(_CURRENT, "stack", None)
+    return stack[-1] if stack else None
 
 
 def distribute(x, sharding: Sharding):

@@ -33,8 +33,12 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
 
 
 def _flat(tree) -> Dict[str, np.ndarray]:
-    """The npz's arrays, keyed by JAX's flattened paths."""
-    return {"/".join(path): leaf.detach().cpu().numpy()
+    """The npz's arrays, keyed by JAX's flattened paths; a ``DTensor``
+    leaf (a sharded run: every rank calls this) is gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    return {"/".join(path): (leaf.full_tensor() if isinstance(leaf, DTensor)
+                             else leaf).detach().cpu().numpy()
             for path, leaf in tree_items(tree)}
 
 
@@ -101,11 +105,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def _unflat(template, flat):
     """``template``'s structure with each leaf read from ``flat`` at its
-    path, in the template leaf's dtype and on its device."""
-    return tree_unflatten(template, [
-        torch.from_numpy(np.asarray(flat["/".join(path)])).to(
+    path, in the template leaf's dtype and on its device (a ``DTensor``
+    leaf's shard of it, placed as that leaf is)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(path, leaf):
+        t = torch.from_numpy(np.asarray(flat["/".join(path)])).to(
             device=leaf.device, dtype=leaf.dtype)
-        for path, leaf in tree_items(template)])
+        if isinstance(leaf, DTensor):
+            return distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                     src_data_rank=None)
+        return t
+    return tree_unflatten(template, [one(path, leaf)
+                                     for path, leaf in tree_items(template)])
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, params_template,

@@ -1102,3 +1102,67 @@ def test_remesh_world_one_nccl_on_the_card(card, tmp_path):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "chatglm3_6b",
+                                  "dbrx_132b", "zamba2_7b"])
+def test_sharded_step_world_one_nccl_on_the_card(card, tmp_path, arch):
+    """A world-1 NCCL group on the (1, 1) mesh: the train step on the
+    placed ``DTensor`` state itself (``constrain`` and ``local_map``
+    live, ``flash_attention`` launched through ``local_map``) equals the
+    plain step bit for bit, and so do a prefill and two decode steps
+    through the mesh path."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (init_cache, logical_axes, prefill,
+                                    reduced, serve_step)
+    from repro_torch.models.convert import numpy_params, params_from_numpy
+    from repro_torch.sharding import (batch_shardings, cache_shardings,
+                                      distribute, use_mesh)
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_init,
+                                   make_train_step, remesh)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = reduced(get_config(arch))
+    params = params_from_numpy(numpy_params(cfg, seed=3), cfg, device=card)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(card)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, TrainConfig(opt=AdamWConfig(
+        lr=1e-2, warmup_steps=1)))
+    flat = lambda p, o: tree_leaves(p) + tree_leaves(o)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(device="cuda")
+        place = lambda t: tree_map(distribute, t, batch_shardings(t, mesh))
+        p1, o1 = remesh(params, opt, logical_axes(cfg), mesh)
+        ops.reset_launch_counts()
+        got = step(p1, o1, place(batch))
+        assert ops.launch_counts()["flash_attention"] > 0
+        want = step(params, opt, batch)
+        for a, b in zip(flat(*got[:2]), flat(*want[:2]), strict=True):
+            assert isinstance(a, DTensor) and torch.equal(a.to_local(), b)
+        with torch.no_grad():
+            tok = batch["tokens"]
+            with use_mesh(mesh):
+                lg = prefill(p1, place(dict(t=tok))["t"], cfg)
+            assert torch.equal(lg.to_local(), prefill(params, tok, cfg))
+            cache = init_cache(cfg, 2, 4, card, torch.float32)
+            cache_m = tree_map(distribute, init_cache(cfg, 2, 4, card,
+                                                      torch.float32),
+                               cache_shardings(cache, mesh, cfg))
+            for t in range(2):
+                x = tok[:, t].contiguous()
+                a, cache = serve_step(params, cache, x, t, cfg)
+                with use_mesh(mesh):
+                    b, cache_m = serve_step(p1, cache_m,
+                                            place(dict(t=x))["t"], t, cfg)
+                assert torch.equal(b.to_local(), a)
+    finally:
+        dist.destroy_process_group()

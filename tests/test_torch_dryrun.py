@@ -6,7 +6,8 @@
   to Σ ``NamedSharding.shard_shape`` × itemsize over the trees the JAX
   dry-run places (parameters, optimizer state, batch; cache, token,
   length), its ``in_shardings`` rebuilt on a ``Mesh`` of the one CPU
-  device repeated; the CLI and ``run_all``'s resumable JSON.
+  device repeated; one cell a family counted (FLOPs, bytes, collective
+  bytes); the CLI and ``run_all``'s resumable JSON.
 * ``launch.mesh``'s LM meshes on fake groups, and their refusals.
 * ``train.elastic.remesh`` on 8 gloo ranks (``tests/goldens/
   remesh_replay.py``) from (2, 4) to ranks 0–3 as (2, 2), each rank's
@@ -88,25 +89,51 @@ def jax_argument_bytes(arch, shape, multi_pod):
 # ---------------------------------------------------------------------
 # the dry-run, every cell
 # ---------------------------------------------------------------------
+# the cells whose step the test runs and counts at full depth, one a
+# family, on one pod (counting all 80 cells at full depth takes minutes;
+# the roofline tests hold the counts themselves, tests/test_torch_roofline.py)
+COUNTED = {("tinyllama_1_1b", "train_4k"), ("dbrx_132b", "decode_32k"),
+           ("xlstm_1_3b", "decode_32k"), ("zamba2_7b", "decode_32k"),
+           ("whisper_large_v3", "decode_32k"), ("qwen2_vl_72b", "decode_32k")}
+COUNT_KEYS = ("flops", "bytes_accessed", "collective_bytes", "time_count_s")
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dryrun_cell_equals_jax(arch, shape):
     """On 256 and 512 fake ranks: a skipped cell has JAX's reason and
     nothing else; a placed one its kind, rank count and the exact
-    per-device argument bytes JAX's shardings give, and no key of the
-    compiled program's (flops, bytes accessed, collectives)."""
+    per-device argument bytes JAX's shardings give.  One cell a family
+    (``COUNTED``, one pod) also runs its step: its record has JAX's
+    ``flops``, ``bytes_accessed`` and ``collective_bytes`` (by JAX's
+    kinds), positive, and its outputs' bytes; the rest are placed only
+    (``count=False``), with none of those keys."""
+    from repro_torch.launch.hlo_analysis import COLLECTIVES
+
     ok, why = JM.shape_applicable(jget(arch), shape)
     for mp in (False, True):
-        rec = dryrun_cell(arch, shape, multi_pod=mp, verbose=False)
+        count = (arch, shape) in COUNTED and not mp
+        rec = dryrun_cell(arch, shape, multi_pod=mp, verbose=False,
+                          count=count)
         if not ok:
             assert rec == dict(arch=arch, shape=shape, multi_pod=mp,
                                status="skipped", reason=why)
             continue
+        counted = {k: rec.pop(k) for k in COUNT_KEYS if k in rec}
+        out_bytes = rec["mem"].pop("output_bytes", None)
         assert rec == dict(
             arch=arch, shape=shape, multi_pod=mp, status="ok",
             kind=JM.SHAPE_SETS[shape]["kind"], n_devices=512 if mp else 256,
             tags="", mem=dict(argument_bytes=jax_argument_bytes(
                 arch, shape, mp)))
+        if not count:
+            assert counted == {} and out_bytes is None
+            continue
+        assert set(counted) == set(COUNT_KEYS)
+        assert counted["flops"] > 0 and counted["bytes_accessed"] > 0
+        assert set(counted["collective_bytes"]) <= set(COLLECTIVES)
+        assert all(v > 0 for v in counted["collective_bytes"].values())
+        assert out_bytes > 0
     assert not dist.is_initialized()
 
 
@@ -124,9 +151,10 @@ def test_dryrun_overrides_and_an_open_group():
 
 def test_dryrun_cli_and_run_all(tmp_path, capsys):
     """``python -m repro_torch.launch.dryrun --arch --shape`` prints the
-    cell's record; ``main`` without both runs ``run_all`` into ``--out``
-    (resumable: a second run adds nothing; microbatches tag a new set),
-    the pod filters honoured."""
+    cell's record, counted; ``main`` without both runs ``run_all`` into
+    ``--out`` (resumable: a second run adds nothing; microbatches tag a
+    new set), the pod filters honoured — with ``--no-count`` (placement
+    only: xLSTM's train_4k alone counts its sLSTM loop for minutes)."""
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "tinyllama_1_1b", "--shape", "train_4k", "--multi-pod"],
@@ -135,8 +163,10 @@ def test_dryrun_cli_and_run_all(tmp_path, capsys):
     rec = json.loads(p.stdout[p.stdout.index("{"):])
     assert rec["mem"]["argument_bytes"] == jax_argument_bytes(
         "tinyllama_1_1b", "train_4k", True)
+    assert rec["flops"] > 0 and rec["collective_bytes"]
     out = tmp_path / "dry" / "results.json"
-    argv = ["--arch", "xlstm_1_3b", "--single-pod-only", "--out", str(out)]
+    argv = ["--arch", "xlstm_1_3b", "--single-pod-only", "--no-count",
+            "--out", str(out)]
     dryrun.main(argv)
     recs = json.loads(out.read_text())
     assert [(r["shape"], r["multi_pod"], r["status"]) for r in recs] == [
@@ -144,7 +174,7 @@ def test_dryrun_cli_and_run_all(tmp_path, capsys):
     dryrun.main(argv)
     assert json.loads(out.read_text()) == recs
     dryrun.main(["--shape", "decode_32k", "--multi-pod-only",
-                 "--microbatches", "2", "--out", str(out)])
+                 "--microbatches", "2", "--no-count", "--out", str(out)])
     more = json.loads(out.read_text())[len(recs):]
     assert [(r["arch"], r["multi_pod"], r["tags"]) for r in more] == [
         (a, True, "mb2") for a in ARCHS]
@@ -333,9 +363,13 @@ def _smoke():
 
 def test_chip_smoke_lm_mesh_phase_rehearsed_on_cpu(tmp_path, monkeypatch):
     """Phase 17 on the CPU (gloo at world 1, reduced TinyLlama; the
-    dry-run CLI at full width, as on the card): green, and its argument
-    bytes, ``LM_MESH``'s constants, are JAX's; a ``remesh`` that moves one
-    value of a leaf fails it."""
+    dry-run CLI at full width, as on the card; the roofline CLI on
+    decode_32k only; the four ranks at reduced widths): green, and its
+    argument bytes, ``LM_MESH``'s constants, are JAX's; the mesh path's
+    step, prefill and decode bit-equal to the plain ones; the four
+    ranks' loss and gradients within their gates, on the CPU (no card:
+    the probe says so); the roofline's cells and the one-card count
+    there; a ``remesh`` that moves one value of a leaf fails it."""
     from repro_torch.configs import get_config
     from repro_torch.models import reduced
     from repro_torch.train import elastic
@@ -347,12 +381,25 @@ def test_chip_smoke_lm_mesh_phase_rehearsed_on_cpu(tmp_path, monkeypatch):
                     "2x16x16": jax_argument_bytes("tinyllama_1_1b",
                                                   "train_4k", True)}
     spec = dict(smoke.LM_MESH, cfg=reduced(get_config("tinyllama_1_1b"),
-                                           n_layers=2), seq=32)
+                                           n_layers=2), seq=32,
+                roofline=["--arch", "tinyllama_1_1b", "--shape",
+                          "decode_32k"],
+                card=dict(reduced=True, depth=2, batch=4, seq=32))
     (tmp_path / "a").mkdir()
     info = smoke.phase_lm_mesh("cpu", str(tmp_path / "a"), spec)
     assert info["dryrun"]["train_4k 16x16"] == want["16x16"]
     assert info["dryrun"]["long_500k 16x16"] == "skipped"
     assert info["loss"][0] == info["loss"][1]
+    assert info["prefill_equal"] and all(info["decode_equal"])
+    ranks = info["ranks"]
+    assert ranks["device"] == "cpu" and ranks["probe_cuda"]["skipped"]
+    assert ranks["worst_rel_l2"] <= smoke.TRAIN_GRAD_RTOL
+    assert set(ranks["collective_counts"]) <= {"all-gather", "all-reduce",
+                                               "reduce-scatter", "all-to-all"}
+    assert {k: v if isinstance(v, str) else v["bottleneck"]
+            for k, v in info["roofline"].items()} == {
+        "decode_32k 16x16": "collective", "decode_32k 2x16x16": "collective"}
+    assert info["one_card"]["flops"] > 0
     assert not dist.is_initialized()
     real = elastic.remesh
 
