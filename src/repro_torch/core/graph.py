@@ -1,4 +1,5 @@
-"""Bipartite graph container used by every PBNG engine (pure numpy).
+"""Bipartite graph container used by every PBNG engine (numpy arrays;
+its constructor is timed by an ``obs.span``).
 
 A copy of the JAX package's ``core/graph.py``: the generators draw from
 the same ``np.random.default_rng(seed)`` streams, so both packages build
@@ -13,6 +14,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+from .. import obs
 
 __all__ = [
     "from_tsv",
@@ -93,13 +96,27 @@ class BipartiteGraph:
     # --------------------------------------------------------------- build
     @staticmethod
     def from_edges(n_u: int, n_v: int, edges) -> "BipartiteGraph":
-        """Canonical constructor: dedup + lexsort + bounds-check edges."""
-        e = np.asarray(edges, dtype=np.int32).reshape(-1, 2)
-        if e.size:
-            e = np.unique(e, axis=0)
-            assert e[:, 0].min() >= 0 and e[:, 0].max() < n_u, "u id out of range"
-            assert e[:, 1].min() >= 0 and e[:, 1].max() < n_v, "v id out of range"
-        return BipartiteGraph(int(n_u), int(n_v), e)
+        """Canonical constructor: dedup + lexsort + bounds-check edges.
+
+        Timed by the ``graph.from_edges`` span; its seconds travel with
+        the graph (:meth:`build_seconds`)."""
+        seconds: dict = {}
+        with obs.span("graph.from_edges", seconds=seconds, event=False):
+            e = np.asarray(edges, dtype=np.int32).reshape(-1, 2)
+            if e.size:
+                e = np.unique(e, axis=0)
+                assert e[:, 0].min() >= 0 and e[:, 0].max() < n_u, "u id out of range"
+                assert e[:, 1].min() >= 0 and e[:, 1].max() < n_v, "v id out of range"
+            g = BipartiteGraph(int(n_u), int(n_v), e)
+        # an attribute, not a field: the graph's fields, equality and
+        # repr stay as they were
+        object.__setattr__(g, "_build_seconds", seconds["graph.from_edges"])
+        return g
+
+    def build_seconds(self) -> float:
+        """Host seconds :meth:`from_edges` took to build this graph; 0
+        for a graph built any other way."""
+        return getattr(self, "_build_seconds", 0.0)
 
 
 # -------------------------------------------------------------- generators

@@ -57,6 +57,8 @@ from .peelspec import (
     _fd_while_fused_rings,
     _fd_while_vmapped,
     _fd_while_vmapped_rings,
+    _fd_host,
+    _fd_int,
     _host,
     _pad_zeros,
     _t,
@@ -79,6 +81,17 @@ __all__ = [
 ]
 
 _I32 = torch.int32
+# the spec's ``seconds`` keys (spans of the spec build and of the FD
+# drivers' packs), each 0 where the spec has no such step
+SPEC_SECONDS = ("spec.wedges", "spec.supports", "spec.beindex",
+                "spec.upload", "fd.pack")
+
+
+def _span(name: str, sec: Optional[dict]):
+    """A sub-step span: its host seconds into ``sec`` and, while
+    ``torch.profiler`` records, a ``record_function``; no Tracer
+    event."""
+    return obs.span(name, seconds=sec, event=False)
 
 
 def resolve_device(device) -> torch.device:
@@ -177,7 +190,9 @@ def build_peel_spec(
     tip dense spec recounts regardless and the beindex spec counts from
     its index.  ``wed`` injects prebuilt wedge structures for the csr
     specs, ``be`` a prebuilt BE-Index for the beindex spec.  Injection
-    never changes results."""
+    never changes results.  The spec's ``seconds`` holds the host
+    seconds of its build steps and of its FD drivers' packs
+    (:data:`SPEC_SECONDS`)."""
     if kind not in ("tip", "wing"):
         raise ValueError(kind)
     if kind == "tip":
@@ -194,17 +209,19 @@ def build_peel_spec(
     if fused and fd_driver == "host":
         raise ValueError("fused requires fd_driver='device' or 'vmapped'")
     device = resolve_device(device)
+    sec = dict.fromkeys(SPEC_SECONDS, 0.0)
     if kind == "tip":
         gg = g if side == "u" else g.transpose()
         if engine == "csr":
             return _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed,
-                                 device)
-        return _tip_spec_dense(gg, batch_recount, stats, device)
+                                 device, sec)
+        return _tip_spec_dense(gg, batch_recount, stats, device, sec)
     if engine == "beindex":
-        return _wing_spec_beindex(g, be, stats, device)
+        return _wing_spec_beindex(g, be, stats, device, sec)
     if engine == "csr":
-        return _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device)
-    return _wing_spec_dense(g, stats, sup0, device)
+        return _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device,
+                              sec)
+    return _wing_spec_dense(g, stats, sup0, device, sec)
 
 
 # =====================================================================
@@ -287,28 +304,32 @@ def _pair_butterflies(A: torch.Tensor) -> torch.Tensor:
 
 
 def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
-                    device) -> PeelSpec:
+                    device, sec: dict) -> PeelSpec:
     """Dense-engine tip spec: masked-product batch re-counts (or §5.1
     adaptive incremental pairwise updates) as the CD step, the static
     pairwise-butterfly cascade as the FD rule."""
     n = gg.n_u
     _dense_guard(gg.n_u, gg.n_v)
-    A = _t(gg.adjacency(), device)
-    # the paper's proxy, kept f32 as the JAX package keeps it: range
-    # selection sums these weights in f32
-    wedge_w = counting.vertex_wedge_workload(A).cpu().numpy()
+    with _span("spec.upload", sec):
+        A = _t(gg.adjacency(), device)
+    with _span("spec.supports", sec):
+        # the paper's proxy, kept f32 as the JAX package keeps it: range
+        # selection sums these weights in f32
+        wedge_w = counting.vertex_wedge_workload(A).cpu().numpy()
 
-    support = counting.vertex_butterflies(A)
-    counting.assert_exact(support)
-    sup0 = _host_rint(support)
+        support = counting.vertex_butterflies(A)
+        counting.assert_exact(support)
+        sup0 = _host_rint(support)
 
-    # counting-work bound ∧cnt (alg.1 complexity) for the adaptive rule
-    du, dv = gg.degrees()
-    cnt_bound = float(
-        np.minimum(du[gg.edges[:, 0]], dv[gg.edges[:, 1]]).sum())
+        # counting-work bound ∧cnt (alg.1 complexity) for the adaptive
+        # rule
+        du, dv = gg.degrees()
+        cnt_bound = float(
+            np.minimum(du[gg.edges[:, 0]], dv[gg.edges[:, 1]]).sum())
 
-    # static pairwise butterfly matrix for the incremental path
-    pair_bf_full = _pair_butterflies(A) if batch_recount is not True else None
+        # static pairwise butterfly matrix for the incremental path
+        pair_bf_full = (_pair_butterflies(A) if batch_recount is not True
+                        else None)
 
     state = dict(alive=torch.ones((n,), dtype=torch.bool, device=device),
                  support=support)
@@ -334,7 +355,8 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
         rows = np.where(part == i)[0]
         if rows.size == 0:
             return 0, 0, 0
-        return _tip_fd_peel(A, rows, sup_init[rows], theta, int(i)), 0, 0
+        return _tip_fd_peel(A, rows, sup_init[rows], theta, int(i),
+                            sec), 0, 0
 
     return PeelSpec(
         kind="tip", n=n, sup0=sup0,
@@ -342,17 +364,21 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
         est=lambda s: wedge_w,
         cd_step=cd_step,
         fd_partition=fd_partition,
+        seconds=sec,
     )
 
 
 def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
-                 theta: np.ndarray, part_i: int = 0) -> int:
+                 theta: np.ndarray, part_i: int = 0,
+                 sec: Optional[dict] = None) -> int:
     """Sequential (level-synchronous) bottom-up peel of one partition.
 
     Exact because a butterfly has exactly two U-endpoints and V is never
     peeled: pairwise counts within the partition are static."""
     dev = A.device
-    pair_bf = _pair_butterflies(A[_t(rows, dev)])
+    with _span("fd.pack", sec):
+        pair_bf = _pair_butterflies(A[_t(rows, dev)])
+    obs.count("fd.host_syncs")           # the pair matrix's W, read back
     alive = np.ones(rows.size, dtype=bool)
     support = sup0.astype(np.float64).copy()
     on_round, finish = _host_recorder(part_i)
@@ -367,6 +393,7 @@ def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
             theta[rows[S]] = k
             alive &= ~S
             support -= _tip_fd_delta(pair_bf, _t(S, dev)).cpu().numpy()
+            obs.count("fd.host_syncs")
             rounds += 1
             if on_round is not None:
                 on_round(k=k, died=int(S.sum()), frontier=int(alive.sum()))
@@ -375,28 +402,31 @@ def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
     return rounds
 
 
-def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
+def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device,
+                  sec: dict) -> PeelSpec:
     """csr tip spec: static pair-butterfly deltas for CD and FD."""
     n = gg.n_u
     if wed is None:
-        wed = csr.build_wedges(gg)
-    pa = _t(wed.pair_a, device)
-    pb = _t(wed.pair_b, device)
-    pair_bf0 = wed.pair_butterflies0()
-    pbf = _t(pair_bf0.astype(np.int32), device)
-    wu, _ = csr.wedge_workload(gg)
-    wedge_w = wu.astype(np.float64)
-
-    sup_np = (csr.vertex_butterflies_csr(wed) if sup0 is None
-              else np.asarray(sup0, dtype=np.int64))
-    if sup_np.size and int(sup_np.max()) > 2 ** 31 - 1:
-        raise OverflowError("tip supports exceed int32; shard the graph")
-    state = dict(support=_t(sup_np.astype(np.int32), device))
-
-    if use_pallas:
-        slots = csr.pack_tip_slots(wed, pair_bf0, sup=sup_np)
-        slot_partner = _t(slots["partner"], device)
-        slot_bf = _t(slots["bf"], device)
+        with _span("spec.wedges", sec):
+            wed = csr.build_wedges(gg)
+    with _span("spec.supports", sec):
+        pair_bf0 = wed.pair_butterflies0()
+        wu, _ = csr.wedge_workload(gg)
+        wedge_w = wu.astype(np.float64)
+        sup_np = (csr.vertex_butterflies_csr(wed) if sup0 is None
+                  else np.asarray(sup0, dtype=np.int64))
+        if sup_np.size and int(sup_np.max()) > 2 ** 31 - 1:
+            raise OverflowError("tip supports exceed int32; shard the graph")
+        if use_pallas:
+            slots = csr.pack_tip_slots(wed, pair_bf0, sup=sup_np)
+    with _span("spec.upload", sec):
+        pa = _t(wed.pair_a, device)
+        pb = _t(wed.pair_b, device)
+        pbf = _t(pair_bf0.astype(np.int32), device)
+        state = dict(support=_t(sup_np.astype(np.int32), device))
+        if use_pallas:
+            slot_partner = _t(slots["partner"], device)
+            slot_bf = _t(slots["bf"], device)
 
     def cd_step(active: np.ndarray) -> np.ndarray:
         act = _t(active, device)
@@ -416,30 +446,31 @@ def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
 
     def fd_partition(i, part, sup_init, theta, fd_driver):
         if fused and fd_driver == "device":
-            if "p" not in fused_pack:
-                fused_pack["p"] = pack_fd_partitions_tip_csr(
-                    wed, pair_bf0, part, sup_init,
-                    int(part.max()) + 1 if part.size else 0,
-                    bucket=True, stacked=True)
-            p = fused_pack["p"]
+            with _span("fd.pack", sec):
+                if "p" not in fused_pack:
+                    fused_pack["p"] = pack_fd_partitions_tip_csr(
+                        wed, pair_bf0, part, sup_init,
+                        int(part.max()) + 1 if part.size else 0,
+                        bucket=True, stacked=True)
+                p = fused_pack["p"]
+                slice_i = [_t(p[key][i:i + 1], device) for key in
+                           ("st_pa", "st_pb", "st_bf", "mine", "sup0")]
             cap = obs.fd_ring_cap()
-            theta_st, rounds, rings = _fd_tip_fused(
-                *(_t(p[key][i:i + 1], device)
-                  for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")),
-                ring_cap=cap)
+            theta_st, rounds, rings = _fd_tip_fused(*slice_i, ring_cap=cap)
+            rounds_i = _fd_int(rounds[0])
             if rings is not None:
-                _drain_rings("fused", [i], [int(rounds[0])], rings, cap,
+                _drain_rings("fused", [i], [rounds_i], rings, cap,
                              cumulative=True)
             mm = p["mine"][i]
-            theta[p["gids"][i][mm]] = _host(theta_st[0])[mm]
-            return int(rounds[0]), 0, 0
+            theta[p["gids"][i][mm]] = _fd_host(theta_st[0])[mm]
+            return rounds_i, 0, 0
         rounds = _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta,
-                             fd_driver, device)
+                             fd_driver, device, sec)
         return rounds, 0, 0
 
     def fd_vmapped(part, sup_init, theta, n_parts):
         return _tip_fd_vmapped_csr(wed, pair_bf0, part, sup_init, theta,
-                                   n_parts, fused, device), 0
+                                   n_parts, fused, device, sec), 0
 
     return PeelSpec(
         kind="tip", n=n, sup0=sup_np,
@@ -448,6 +479,7 @@ def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
         cd_step=cd_step,
         fd_partition=fd_partition,
         fd_vmapped=fd_vmapped,
+        seconds=sec,
     )
 
 
@@ -505,7 +537,7 @@ def _fd_tip_vmapped(pag, pbg, bff, mine, sup0, ring_cap: int = 0):
 
 
 def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
-                device) -> int:
+                device, sec: Optional[dict] = None) -> int:
     """Bottom-up peel of tip partition i on its pair list (pairs with
     both endpoints inside the partition; deltas to later partitions are
     discarded anyway).  ``device``: one batched loop; ``host``: one
@@ -514,31 +546,33 @@ def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
     if not mine.any():
         return 0
     n = part.size
-    mask = (mine[wed.pair_a] & mine[wed.pair_b] if wed.n_pairs
-            else np.zeros(0, bool))
-    support0 = np.zeros(n, dtype=np.int64)
-    support0[mine] = sup_init[mine]
+    with _span("fd.pack", sec):
+        mask = (mine[wed.pair_a] & mine[wed.pair_b] if wed.n_pairs
+                else np.zeros(0, bool))
+        support0 = np.zeros(n, dtype=np.int64)
+        support0[mine] = sup_init[mine]
+        n_kept = int(mask.sum())
+        size = _bucket_pad(n_kept) if fd_driver == "device" else n_kept
+        pa = _t(_pad_zeros(wed.pair_a[mask], size), device)
+        pb = _t(_pad_zeros(wed.pair_b[mask], size), device)
+        pbf = _t(_pad_zeros(pair_bf0[mask].astype(np.int32), size), device)
+        if fd_driver == "device":
+            mine_d = _t(mine, device)
+            sup_d = _t(support0.astype(np.int32), device)
 
     if fd_driver == "device":
-        size = _bucket_pad(int(mask.sum()))
         cap = obs.fd_ring_cap()
         theta_d, rounds, _, rings = _fd_tip_device(
-            _t(mine, device), _t(support0.astype(np.int32), device),
-            _t(_pad_zeros(wed.pair_a[mask], size), device),
-            _t(_pad_zeros(wed.pair_b[mask], size), device),
-            _t(_pad_zeros(pair_bf0[mask].astype(np.int32), size), device),
-            n, ring_cap=cap)
+            mine_d, sup_d, pa, pb, pbf, n, ring_cap=cap)
+        rounds = _fd_int(rounds)
         if rings is not None:
-            _drain_rings("device", [i], [int(rounds)], rings, cap)
-        theta[mine] = _host(theta_d)[mine]
-        return int(rounds)
-
-    pa = _t(wed.pair_a[mask], device)
-    pb = _t(wed.pair_b[mask], device)
-    pbf = _t(pair_bf0[mask].astype(np.int32), device)
+            _drain_rings("device", [i], [rounds], rings, cap)
+        theta[mine] = _fd_host(theta_d)[mine]
+        return rounds
 
     def peel(S, sup):
-        return sup - _host(csr.tip_delta_csr(_t(S, device), pa, pb, pbf, n))
+        return sup - _fd_host(csr.tip_delta_csr(_t(S, device), pa, pb, pbf,
+                                                n))
 
     on_round, finish = _host_recorder(i)
     rounds = _fd_cascade(mine, support0, theta, peel, on_round=on_round)
@@ -548,26 +582,27 @@ def _tip_fd_csr(wed, pair_bf0, part, i, sup_init, theta, fd_driver,
 
 
 def _tip_fd_vmapped_csr(wed, pair_bf0, part, sup_init, theta, n_parts,
-                        fused, device) -> np.ndarray:
+                        fused, device, sec: Optional[dict] = None
+                        ) -> np.ndarray:
     """Tip Phase 2 of all partitions in one batched loop; writes θ in
     place and returns the (B,) per-partition round counts."""
     if n_parts == 0:
         return np.zeros(0, dtype=np.int64)
-    packed = pack_fd_partitions_tip_csr(
-        wed, pair_bf0, part, sup_init, n_parts, bucket=True, stacked=fused)
+    keys = (("st_pa", "st_pb", "st_bf") if fused else ("pa", "pb", "bf")
+            ) + ("mine", "sup0")
+    with _span("fd.pack", sec):
+        packed = pack_fd_partitions_tip_csr(
+            wed, pair_bf0, part, sup_init, n_parts, bucket=True,
+            stacked=fused)
+        arrays = [_t(packed[key], device) for key in keys]
     cap = obs.fd_ring_cap()
     if fused:
-        theta_st, rounds, rings = _fd_tip_fused(
-            *(_t(packed[key], device)
-              for key in ("st_pa", "st_pb", "st_bf", "mine", "sup0")),
-            ring_cap=cap)
+        theta_st, rounds, rings = _fd_tip_fused(*arrays, ring_cap=cap)
     else:
-        theta_st, rounds, _, rings = _fd_tip_vmapped(
-            *(_t(packed[key], device)
-              for key in ("pa", "pb", "bf", "mine", "sup0")), ring_cap=cap)
+        theta_st, rounds, _, rings = _fd_tip_vmapped(*arrays, ring_cap=cap)
     mm = packed["mine"]
-    theta[packed["gids"][mm]] = _host(theta_st)[mm]
-    rounds_np = _host(rounds)
+    theta[packed["gids"][mm]] = _fd_host(theta_st)[mm]
+    rounds_np = _fd_host(rounds)
     if rings is not None:
         _drain_rings("fused" if fused else "vmapped",
                      list(range(rounds_np.size)), rounds_np.tolist(), rings,
@@ -643,20 +678,24 @@ def _wing_update(peeled_e, alive_link, k_alive, support, le, lt, lb,
 
 
 def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
-                       stats: PeelStats, device) -> PeelSpec:
+                       stats: PeelStats, device, sec: dict) -> PeelSpec:
     """BE-Index wing spec: alg.4/6 widow/survivor updates as the CD
     step, link-packed sub-indices (alg.5) as the FD rule."""
     m = g.m
     if be is None:
-        be = build_beindex(g)
-    le, lt, lb = _wing_links(be, device)
+        with _span("spec.beindex", sec):
+            be = build_beindex(g)
     nb = max(be.nb, 1)
-    sup0 = be.edge_support(m)
-    state = dict(
-        alive_link=torch.ones((be.n_links,), dtype=torch.bool, device=device),
-        k_alive=_t(be.bloom_k.astype(np.int32), device),
-        support=_t(sup0.astype(np.int32), device),
-    )
+    with _span("spec.supports", sec):
+        sup0 = be.edge_support(m)
+    with _span("spec.upload", sec):
+        le, lt, lb = _wing_links(be, device)
+        state = dict(
+            alive_link=torch.ones((be.n_links,), dtype=torch.bool,
+                                  device=device),
+            k_alive=_t(be.bloom_k.astype(np.int32), device),
+            support=_t(sup0.astype(np.int32), device),
+        )
 
     def cd_step(active: np.ndarray) -> np.ndarray:
         state["alive_link"], state["k_alive"], state["support"], nupd = (
@@ -668,53 +707,55 @@ def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
 
     def fd_partition(i, part, sup_init, theta, fd_driver):
         rounds, nupd = _wing_fd_beindex(g, be, part, i, sup_init, theta,
-                                        device)
+                                        device, sec)
         return rounds, nupd, 0
 
     workload, est = _wing_workload_est()
     return PeelSpec(
         kind="wing", n=m, sup0=sup0, workload=workload, est=est,
-        cd_step=cd_step, fd_partition=fd_partition,
+        cd_step=cd_step, fd_partition=fd_partition, seconds=sec,
     )
 
 
 def _wing_fd_beindex(g: BipartiteGraph, be: BEIndex, part: np.ndarray,
                      i: int, sup_init: np.ndarray, theta: np.ndarray,
-                     device) -> Tuple[int, int]:
+                     device, sec: Optional[dict] = None) -> Tuple[int, int]:
     """FD for partition i, BE-Index engine (alg.5 semantics).
 
     Sub-index = links whose pair touches partition i with both members in
     partitions ≥ i; bloom numbers initialised to the count of pairs with
     both members ≥ i (alg.5 lines 21-24)."""
-    ple = part[be.link_edge]
-    plt_ = part[be.link_twin]
-    pair_ge = (ple >= i) & (plt_ >= i)
-    keep = pair_ge & (np.minimum(ple, plt_) == i)  # pairs that can die in FD_i
-    if not keep.any():
-        return 0, 0
-    canon_full = be.link_edge < be.link_twin
-    # bloom number in I_i: pairs with both members ≥ i
-    k_init = np.bincount(be.link_bloom[pair_ge & canon_full],
-                         minlength=be.nb)
-    le = _t(be.link_edge[keep], device)
-    lt = _t(be.link_twin[keep], device)
-    lb = _t(be.link_bloom[keep], device)
-    nb = max(be.nb, 1)
-    m = g.m
-    mine = part == i
-    support_full = np.zeros(m, dtype=np.int64)
-    support_full[mine] = sup_init[mine]
-    st = dict(alive_link=torch.ones((int(keep.sum()),), dtype=torch.bool,
-                                    device=device),
-              k_alive=_t(k_init.astype(np.int32), device),
-              support=_t(support_full.astype(np.int32), device), nupd=0)
+    with _span("fd.pack", sec):
+        ple = part[be.link_edge]
+        plt_ = part[be.link_twin]
+        pair_ge = (ple >= i) & (plt_ >= i)
+        # pairs that can die in FD_i
+        keep = pair_ge & (np.minimum(ple, plt_) == i)
+        if not keep.any():
+            return 0, 0
+        canon_full = be.link_edge < be.link_twin
+        # bloom number in I_i: pairs with both members ≥ i
+        k_init = np.bincount(be.link_bloom[pair_ge & canon_full],
+                             minlength=be.nb)
+        le = _t(be.link_edge[keep], device)
+        lt = _t(be.link_twin[keep], device)
+        lb = _t(be.link_bloom[keep], device)
+        nb = max(be.nb, 1)
+        m = g.m
+        mine = part == i
+        support_full = np.zeros(m, dtype=np.int64)
+        support_full[mine] = sup_init[mine]
+        st = dict(alive_link=torch.ones((int(keep.sum()),),
+                                        dtype=torch.bool, device=device),
+                  k_alive=_t(k_init.astype(np.int32), device),
+                  support=_t(support_full.astype(np.int32), device), nupd=0)
 
     def peel(S, sup):
         st["alive_link"], st["k_alive"], st["support"], nu = _wing_update(
             _t(S, device), st["alive_link"], st["k_alive"], st["support"],
             le, lt, lb, nb, m)
-        st["nupd"] += int(nu)
-        return _host(st["support"])
+        st["nupd"] += _fd_int(nu)
+        return _fd_host(st["support"])
 
     on_round, finish = _host_recorder(i, lambda: st["nupd"])
     rounds = _fd_cascade(mine, support_full.copy(), theta, peel,
@@ -725,20 +766,23 @@ def _wing_fd_beindex(g: BipartiteGraph, be: BEIndex, part: np.ndarray,
 
 
 def _wing_spec_dense(g: BipartiteGraph, stats: PeelStats,
-                     sup0: Optional[np.ndarray], device) -> PeelSpec:
+                     sup0: Optional[np.ndarray], device,
+                     sec: dict) -> PeelSpec:
     """Dense wing spec: masked-product batch re-counts for both phases."""
     m = g.m
     _dense_guard(g.n_u, g.n_v)
-    edges = _t(g.edges.astype(np.int64), device)
+    with _span("spec.upload", sec):
+        edges = _t(g.edges.astype(np.int64), device)
     shape = (g.n_u, g.n_v)
-    if sup0 is None:
-        support = _wing_recount(shape, edges,
-                                torch.ones((m,), dtype=torch.bool,
-                                           device=device))
-        counting.assert_exact(support)
-        sup0 = _host_rint(support)
-    else:
-        sup0 = np.asarray(sup0, dtype=np.int64)
+    with _span("spec.supports", sec):
+        if sup0 is None:
+            support = _wing_recount(shape, edges,
+                                    torch.ones((m,), dtype=torch.bool,
+                                               device=device))
+            counting.assert_exact(support)
+            sup0 = _host_rint(support)
+        else:
+            sup0 = np.asarray(sup0, dtype=np.int64)
     state = dict(alive=np.ones(m, dtype=bool))
 
     def cd_step(active: np.ndarray) -> np.ndarray:
@@ -748,26 +792,28 @@ def _wing_spec_dense(g: BipartiteGraph, stats: PeelStats,
         return _host_rint(sup)
 
     def fd_partition(i, part, sup_init, theta, fd_driver):
-        rounds, nrec = _wing_fd_dense(g, part, i, sup_init, theta, device)
+        rounds, nrec = _wing_fd_dense(g, part, i, sup_init, theta, device,
+                                      sec)
         return rounds, 0, nrec
 
     workload, est = _wing_workload_est()
     return PeelSpec(
         kind="wing", n=m, sup0=sup0, workload=workload, est=est,
-        cd_step=cd_step, fd_partition=fd_partition,
+        cd_step=cd_step, fd_partition=fd_partition, seconds=sec,
     )
 
 
 def _wing_fd_dense(g: BipartiteGraph, part: np.ndarray, i: int,
                    sup_init: np.ndarray, theta: np.ndarray,
-                   device) -> Tuple[int, int]:
+                   device, sec: Optional[dict] = None) -> Tuple[int, int]:
     """FD for partition i, dense engine: peel E_i inside the ≥i subgraph,
     re-counting supports on the masked adjacency each round."""
     sel = np.where(part >= i)[0]
     mine = part[sel] == i
     if not mine.any():
         return 0, 0
-    sub_edges = _t(g.edges[sel].astype(np.int64), device)
+    with _span("fd.pack", sec):
+        sub_edges = _t(g.edges[sel].astype(np.int64), device)
     shape = (g.n_u, g.n_v)
     alive = np.ones(sel.size, dtype=bool)
     support = sup_init[sel].astype(np.int64).copy()
@@ -784,6 +830,7 @@ def _wing_fd_dense(g: BipartiteGraph, part: np.ndarray, i: int,
             alive &= ~S
             support = _host_rint(
                 _wing_recount(shape, sub_edges, _t(alive, device)))
+            obs.count("fd.host_syncs")
             rounds += 1
             if on_round is not None:
                 on_round(k=k, died=int(S.sum()),
@@ -808,31 +855,38 @@ def _w_rows(p: dict, n_parts: int) -> np.ndarray:
     return W_rows
 
 
-def _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
+def _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device,
+                   sec: dict) -> PeelSpec:
     """csr wing spec: incremental wedge-list widow/survivor updates as
     the CD step (optionally through ``support_update`` on the pairs-major
     slot layout), touching-wedge lists as the FD rule."""
     m = g.m
     if wed is None:
-        wed = csr.build_wedges(g)
-    we1 = _t(wed.wedge_e1, device)
-    we2 = _t(wed.wedge_e2, device)
-    wpj = _t(wed.wedge_pair, device)
+        with _span("spec.wedges", sec):
+            wed = csr.build_wedges(g)
     n_pairs = wed.n_pairs
-    sup0 = (csr.edge_butterflies0(wed) if sup0 is None
-            else np.asarray(sup0, dtype=np.int64))
-    if sup0.size and int(sup0.max()) > 2 ** 31 - 1:
-        raise OverflowError("wing supports exceed int32; shard the graph")
-    state = dict(
-        alive_w=torch.ones((wed.n_wedges,), dtype=torch.bool, device=device),
-        Wp=csr.pair_wedge_counts(wed, device=device),
-        support=_t(sup0.astype(np.int32), device),
-    )
-    if use_pallas:
-        slots = csr.pack_update_slots(wed)
-        state["alive_slots"] = _t(slots["valid"], device)
-        slot_e1 = _t(slots["e1"], device)
-        slot_e2 = _t(slots["e2"], device)
+    with _span("spec.supports", sec):
+        sup0 = (csr.edge_butterflies0(wed) if sup0 is None
+                else np.asarray(sup0, dtype=np.int64))
+        if sup0.size and int(sup0.max()) > 2 ** 31 - 1:
+            raise OverflowError(
+                "wing supports exceed int32; shard the graph")
+        if use_pallas:
+            slots = csr.pack_update_slots(wed)
+    with _span("spec.upload", sec):
+        we1 = _t(wed.wedge_e1, device)
+        we2 = _t(wed.wedge_e2, device)
+        wpj = _t(wed.wedge_pair, device)
+        state = dict(
+            alive_w=torch.ones((wed.n_wedges,), dtype=torch.bool,
+                               device=device),
+            Wp=csr.pair_wedge_counts(wed, device=device),
+            support=_t(sup0.astype(np.int32), device),
+        )
+        if use_pallas:
+            state["alive_slots"] = _t(slots["valid"], device)
+            slot_e1 = _t(slots["e1"], device)
+            slot_e2 = _t(slots["e2"], device)
 
     def cd_step(active: np.ndarray) -> np.ndarray:
         act = _t(active, device)
@@ -853,36 +907,41 @@ def _wing_spec_csr(g, stats, use_pallas, fused, sup0, wed, device) -> PeelSpec:
 
     def fd_partition(i, part, sup_init, theta, fd_driver):
         if fused and fd_driver == "device":
-            if "p" not in fused_pack:
-                n_parts = int(part.max()) + 1 if part.size else 0
-                p = pack_fd_partitions_csr(
-                    wed, part, sup_init, n_parts, bucket=True, slots=True)
-                p["W_rows"] = _w_rows(p, n_parts)
-                fused_pack["p"] = p
-            p = fused_pack["p"]
+            with _span("fd.pack", sec):
+                if "p" not in fused_pack:
+                    n_parts = int(part.max()) + 1 if part.size else 0
+                    p = pack_fd_partitions_csr(
+                        wed, part, sup_init, n_parts, bucket=True,
+                        slots=True)
+                    p["W_rows"] = _w_rows(p, n_parts)
+                    fused_pack["p"] = p
+                p = fused_pack["p"]
+                slice_i = [_t(p[key][i:i + 1], device) for key in
+                           ("slot_e1", "slot_e2", "slot_valid", "W_rows",
+                            "mine", "sup0")]
             cap = obs.fd_ring_cap()
-            theta_st, rounds, nupd, rings = _fd_wing_fused(
-                *(_t(p[key][i:i + 1], device)
-                  for key in ("slot_e1", "slot_e2", "slot_valid", "W_rows",
-                              "mine", "sup0")), ring_cap=cap)
+            theta_st, rounds, nupd, rings = _fd_wing_fused(*slice_i,
+                                                           ring_cap=cap)
+            rounds_i = _fd_int(rounds[0])
             if rings is not None:
-                _drain_rings("fused", [i], [int(rounds[0])], rings, cap,
+                _drain_rings("fused", [i], [rounds_i], rings, cap,
                              cumulative=True)
             mm = p["mine"][i]
-            theta[p["gids"][i][mm]] = _host(theta_st[0])[mm]
-            return int(rounds[0]), int(nupd), 0
+            theta[p["gids"][i][mm]] = _fd_host(theta_st[0])[mm]
+            return rounds_i, _fd_int(nupd), 0
         rounds, nupd = _wing_fd_csr(wed, part, i, sup_init, theta,
-                                    fd_driver, device)
+                                    fd_driver, device, sec)
         return rounds, nupd, 0
 
     def fd_vmapped(part, sup_init, theta, n_parts):
         return _wing_fd_vmapped_csr(wed, part, sup_init, theta, n_parts,
-                                    use_pallas, fused, device)
+                                    use_pallas, fused, device, sec)
 
     workload, est = _wing_workload_est()
     return PeelSpec(
         kind="wing", n=m, sup0=sup0, workload=workload, est=est,
         cd_step=cd_step, fd_partition=fd_partition, fd_vmapped=fd_vmapped,
+        seconds=sec,
     )
 
 
@@ -964,7 +1023,7 @@ def _fd_wing_vmapped_pallas(slot_e1, slot_e2, valid0, W0, mine, sup0,
 
 
 def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
-                 device) -> Tuple[int, int]:
+                 device, sec: Optional[dict] = None) -> Tuple[int, int]:
     """FD for wing partition i.  W_p counts all wedges of the ≥i induced
     subgraph, but the wedge list carries only the wedges touching
     partition i (the others never die during FD_i, and their survivor
@@ -974,49 +1033,50 @@ def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
         return 0, 0
     m = part.size
     n_pairs = wed.n_pairs
-    if wed.n_wedges:
-        p1 = part[wed.wedge_e1]
-        p2 = part[wed.wedge_e2]
-        keep_ge = (p1 >= i) & (p2 >= i)
-        keep = keep_ge & (np.minimum(p1, p2) == i)
-    else:
-        keep_ge = keep = np.zeros(0, bool)
-    Wp = _t(np.bincount(wed.wedge_pair[keep_ge],
-                        minlength=max(n_pairs, 1)).astype(np.int32), device)
-    support_full = np.zeros(m, dtype=np.int64)
-    support_full[mine] = sup_init[mine]
-
-    if fd_driver == "device":
+    with _span("fd.pack", sec):
+        if wed.n_wedges:
+            p1 = part[wed.wedge_e1]
+            p2 = part[wed.wedge_e2]
+            keep_ge = (p1 >= i) & (p2 >= i)
+            keep = keep_ge & (np.minimum(p1, p2) == i)
+        else:
+            keep_ge = keep = np.zeros(0, bool)
+        Wp = _t(np.bincount(wed.wedge_pair[keep_ge],
+                            minlength=max(n_pairs, 1)).astype(np.int32),
+                device)
+        support_full = np.zeros(m, dtype=np.int64)
+        support_full[mine] = sup_init[mine]
         n_kept = int(keep.sum())
-        size = _bucket_pad(n_kept)
+        size = _bucket_pad(n_kept) if fd_driver == "device" else n_kept
+        kwe1 = _t(_pad_zeros(wed.wedge_e1[keep], size), device)
+        kwe2 = _t(_pad_zeros(wed.wedge_e2[keep], size), device)
+        kwp = _t(_pad_zeros(wed.wedge_pair[keep], size), device)
         alive_w = np.zeros(size, dtype=bool)
         alive_w[:n_kept] = True
+        alive_w = _t(alive_w, device)
+        support = _t(support_full.astype(np.int32), device)
+        if fd_driver == "device":
+            mine_d = _t(mine, device)
+
+    if fd_driver == "device":
         cap = obs.fd_ring_cap()
         theta_d, rounds, nupd, rings = _fd_wing_device(
-            _t(mine, device), _t(support_full.astype(np.int32), device),
-            _t(alive_w, device), Wp,
-            _t(_pad_zeros(wed.wedge_e1[keep], size), device),
-            _t(_pad_zeros(wed.wedge_e2[keep], size), device),
-            _t(_pad_zeros(wed.wedge_pair[keep], size), device),
-            n_pairs, m, ring_cap=cap)
+            mine_d, support, alive_w, Wp, kwe1, kwe2, kwp, n_pairs, m,
+            ring_cap=cap)
+        rounds = _fd_int(rounds)
         if rings is not None:
-            _drain_rings("device", [i], [int(rounds)], rings, cap)
-        theta[mine] = _host(theta_d)[mine]
-        return int(rounds), int(nupd)
+            _drain_rings("device", [i], [rounds], rings, cap)
+        theta[mine] = _fd_host(theta_d)[mine]
+        return rounds, _fd_int(nupd)
 
-    kwe1 = _t(wed.wedge_e1[keep], device)
-    kwe2 = _t(wed.wedge_e2[keep], device)
-    kwp = _t(wed.wedge_pair[keep], device)
-    alive_w = torch.ones((int(keep.sum()),), dtype=torch.bool, device=device)
-    support = _t(support_full.astype(np.int32), device)
     nupd = 0
 
     def peel(S, sup):
         nonlocal alive_w, Wp, support, nupd
         alive_w, Wp, support, nu = csr.wing_update_csr(
             _t(S, device), alive_w, Wp, support, kwe1, kwe2, kwp, n_pairs, m)
-        nupd += int(nu)
-        return _host(support)
+        nupd += _fd_int(nu)
+        return _fd_host(support)
 
     on_round, finish = _host_recorder(i, lambda: nupd)
     rounds = _fd_cascade(mine, support_full, theta, peel, on_round=on_round)
@@ -1026,7 +1086,8 @@ def _wing_fd_csr(wed, part, i, sup_init, theta, fd_driver,
 
 
 def _wing_fd_vmapped_csr(wed, part, sup_init, theta, n_parts, use_pallas,
-                         fused, device) -> Tuple[np.ndarray, int]:
+                         fused, device, sec: Optional[dict] = None
+                         ) -> Tuple[np.ndarray, int]:
     """Wing Phase 2 of all partitions in one batched loop: flat wedge
     lists (unfused), the stacked slot layout with ``support_update``
     (``use_pallas``) or with ``fd_round_wing`` (``fused``).  Writes θ in
@@ -1034,32 +1095,32 @@ def _wing_fd_vmapped_csr(wed, part, sup_init, theta, n_parts, use_pallas,
     if n_parts == 0:
         return np.zeros(0, dtype=np.int64), 0
     slotted = use_pallas or fused
-    packed = pack_fd_partitions_csr(
-        wed, part, sup_init, n_parts, bucket=True,
-        flat=not slotted, slots=slotted)
+    with _span("fd.pack", sec):
+        packed = pack_fd_partitions_csr(
+            wed, part, sup_init, n_parts, bucket=True,
+            flat=not slotted, slots=slotted)
+        if slotted:
+            packed["W_rows"] = _w_rows(packed, n_parts)
+            keys = ("slot_e1", "slot_e2", "slot_valid", "W_rows")
+        else:
+            keys = ("flat_we1", "flat_we2", "flat_wp", "flat_alive0",
+                    "flat_W0")
+        arrays = [_t(packed[key], device) for key in keys + ("mine", "sup0")]
     cap = obs.fd_ring_cap()
     if slotted:
         body = _fd_wing_fused if fused else _fd_wing_vmapped_pallas
-        theta_st, rounds, nupd, rings = body(
-            _t(packed["slot_e1"], device), _t(packed["slot_e2"], device),
-            _t(packed["slot_valid"], device),
-            _t(_w_rows(packed, n_parts), device),
-            _t(packed["mine"], device), _t(packed["sup0"], device),
-            ring_cap=cap)
+        theta_st, rounds, nupd, rings = body(*arrays, ring_cap=cap)
     else:
         theta_st, rounds, nupd, rings = _fd_wing_vmapped(
-            *(_t(packed[key], device)
-              for key in ("flat_we1", "flat_we2", "flat_wp", "flat_alive0",
-                          "flat_W0", "mine", "sup0")),
-            n_pairs=int(packed["flat_W0"].shape[0]), ring_cap=cap)
+            *arrays, n_pairs=int(packed["flat_W0"].shape[0]), ring_cap=cap)
     mm = packed["mine"]
-    theta[packed["gids"][mm]] = _host(theta_st)[mm]
-    rounds_np = _host(rounds)
+    theta[packed["gids"][mm]] = _fd_host(theta_st)[mm]
+    rounds_np = _fd_host(rounds)
     if rings is not None:
         _drain_rings("fused" if fused else "vmapped",
                      list(range(rounds_np.size)), rounds_np.tolist(), rings,
                      cap, cumulative=fused)
-    return rounds_np, int(nupd)
+    return rounds_np, _fd_int(nupd)
 
 
 # =====================================================================

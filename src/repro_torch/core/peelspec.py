@@ -34,7 +34,6 @@ batched loop already does for partitions that drain before the last.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -106,9 +105,10 @@ class PeelResult:
     """Everything a decomposition produced: θ, the CD partition of each
     entity, the range boundaries θ(1..P+1), the ⋈init snapshot and the
     engine-tagged :class:`PeelStats`; ``seconds`` holds the host-clock
-    seconds of the two phases (``cd``, ``fd``) and is no part of the
-    provenance; ``timeline`` holds the per-round curves when the obs
-    layer was on during the run."""
+    seconds of the two phases (``cd``, ``fd``) and the spec's own
+    (``PeelSpec.seconds``: its build steps and its FD drivers' packs),
+    and is no part of the provenance; ``timeline`` holds the per-round
+    curves when the obs layer was on during the run."""
 
     theta: np.ndarray         # entity numbers
     part: np.ndarray          # CD partition id per entity
@@ -146,7 +146,9 @@ class PeelSpec:
     sup_init, theta, fd_driver) -> (rounds, n_updates, n_recounts)``
     peels partition i bottom-up, writing θ in place.  ``fd_vmapped(part,
     sup_init, theta, n_parts) -> (rounds[B], n_updates)`` peels all
-    partitions in one batched loop."""
+    partitions in one batched loop.  ``seconds`` collects the host
+    seconds of the spec's build steps and of its FD drivers' packs, by
+    span name (``obs.span``'s ``seconds`` sink)."""
 
     kind: str                 # "tip" | "wing" — provenance tag
     n: int                    # entity universe size
@@ -156,6 +158,7 @@ class PeelSpec:
     cd_step: Callable         # active mask -> refreshed int64 supports
     fd_partition: Optional[Callable] = None
     fd_vmapped: Optional[Callable] = None
+    seconds: dict = dataclasses.field(default_factory=dict)
 
 
 # =====================================================================
@@ -361,23 +364,24 @@ def decompose(
     :class:`PeelResult` — the driver behind ``tip_decomposition`` and
     ``wing_decomposition``.
 
-    With the obs layer on this is the telemetry root: it installs the
-    timeline collector, wraps the run in a ``peel`` span with ``cd`` /
-    ``fd`` phase spans, attaches the built timeline to the result and
+    The ``cd`` and ``fd`` spans time the two phases into the result's
+    ``seconds``, beside the spec's own.  With the obs layer on this is
+    the telemetry root: it installs the timeline collector, wraps the
+    run in a ``peel`` span, attaches the built timeline to the result and
     adds the per-round ``fd.round`` events to the trace."""
+    obs.count("peel.decompositions")
+    seconds: dict = {}
     with obs.maybe_collect() as col:
         with obs.span("peel.decompose", cat="peel", kind=spec.kind,
                       engine=stats.engine, fd_driver=fd_driver, P=int(P)):
-            t0 = time.perf_counter()
-            with obs.span("cd", cat="cd"):
+            with obs.span("cd", cat="cd", seconds=seconds):
                 part, sup_init, ranges, p_eff = cd_loop(
                     spec, P, stats, target=target)
-            t1 = time.perf_counter()
-            theta = np.zeros(spec.n, dtype=np.int64)
-            with obs.span("fd", cat="fd", driver=fd_driver):
+            with obs.span("fd", cat="fd", driver=fd_driver,
+                          seconds=seconds):
+                theta = np.zeros(spec.n, dtype=np.int64)
                 run_fd(spec, part, sup_init, theta, p_eff, stats,
                        fd_driver=fd_driver)
-            t2 = time.perf_counter()
     timeline = None
     if col is not None:
         timeline = col.build()
@@ -386,7 +390,7 @@ def decompose(
             timeline.emit_trace_events(tracer)
     return PeelResult(theta=theta, part=part, ranges=ranges,
                       support_init=sup_init, stats=stats,
-                      seconds=dict(cd=t1 - t0, fd=t2 - t1),
+                      seconds={**spec.seconds, **seconds},
                       timeline=timeline)
 
 
@@ -448,6 +452,19 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy().astype(np.int64)
 
 
+def _fd_host(x: torch.Tensor) -> np.ndarray:
+    """:func:`_host` in an FD driver: one ``fd.host_syncs``."""
+    obs.count("fd.host_syncs")
+    return _host(x)
+
+
+def _fd_int(x: torch.Tensor) -> int:
+    """A device scalar as an ``int`` in an FD driver: one
+    ``fd.host_syncs``."""
+    obs.count("fd.host_syncs")
+    return int(x)
+
+
 def _pad_zeros(x: np.ndarray, size: int) -> np.ndarray:
     if x.size >= size:
         return x
@@ -457,8 +474,9 @@ def _pad_zeros(x: np.ndarray, size: int) -> np.ndarray:
 def _until_drained(state, step, alive_at: int):
     """Queue rounds ``state = step(*state)`` in chunks of
     :data:`FD_CHUNK` until ``state[alive_at]`` holds nothing alive,
-    reading the device once per chunk."""
-    while bool(state[alive_at].any()):
+    reading the device once per chunk and once more at the end (each
+    read one ``fd.host_syncs``)."""
+    while _fd_int(state[alive_at].any()):
         for _ in range(FD_CHUNK):
             state = step(*state)
     return state
@@ -570,6 +588,7 @@ def _ring_write(rings, it: torch.Tensor, on: torch.Tensor, rows) -> None:
 
 
 def _host_rings(rings):
+    obs.count("fd.host_syncs", len(rings))
     return tuple(r.cpu().numpy() for r in rings)
 
 

@@ -228,15 +228,32 @@ def run(args, g=None) -> dict:
     ``theta_sha256``; ``stats_out["result"]`` holds the PeelResult,
     ``stats_out["seconds"]`` the seconds of each step (``ingest``,
     ``tiled_init``, ``peel`` — of which ``cd`` and ``fd`` are the two
-    phases, the rest the engine's setup —, ``hierarchy_labels`` — of which
+    phases (``fd.pack`` inside ``fd``) and the rest the engine's setup
+    (``spec.wedges``, ``spec.supports``, ``spec.beindex``,
+    ``spec.upload``) —, ``peel.summary`` (the θ digest and the summary
+    lines), ``hierarchy_labels`` — of which
     ``hierarchy_incidence`` is the host wedge enumeration —,
-    ``hierarchy_assembly``, as far as the run had them), with
+    ``hierarchy_assembly``, as far as the run had them; ``graph``, the
+    seconds ``BipartiteGraph.from_edges`` took to build the peeled graph,
+    wherever it was built (0 for a graph built otherwise); ``run``, the
+    whole of this call; ``gc``, the cyclic GC's pauses inside it), with
     ``--edges`` ``stats_out["tiled_init"]`` the tiled init's total
     butterflies, TileStats and ⋈init vector, with ``--emit-hierarchy``
     ``stats_out["hierarchy"]`` the Hierarchy, and with ``--trace``
     ``stats_out["timeline"]`` the timeline's digest and
     ``stats_out["trace"]`` the Tracer (the layer is off again after the
     run unless the caller had turned it on)."""
+    from .. import obs
+
+    seconds: dict = {}
+    with obs.gc_pauses(seconds), obs.span("run", seconds=seconds,
+                                          event=False):
+        return _run_body(args, g, seconds)
+
+
+def _run_body(args, g, seconds: dict) -> dict:
+    """:func:`run`'s body: the process group, the obs layer's switch for
+    ``--trace``, and :func:`_run` on the lead rank's stdout."""
     import contextlib
     import os
 
@@ -261,7 +278,7 @@ def run(args, g=None) -> dict:
             quiet.enter_context(contextlib.redirect_stdout(
                 quiet.enter_context(open(os.devnull, "w"))))
         try:
-            stats_out = _run(args, g, n_dev, lead)
+            stats_out = _run(args, g, n_dev, lead, seconds)
         finally:
             tracer = obs.get_tracer()
             if args.trace and not was_on:
@@ -296,11 +313,11 @@ def _peel_distributed(args, g):
     return out
 
 
-def _run(args, g, n_dev: int = 1, lead: bool = True) -> dict:
+def _run(args, g, n_dev: int, lead: bool, seconds: dict) -> dict:
+    from .. import obs
     from ..core.graph import paper_proxy_dataset, powerlaw_bipartite
     from ..core.peel import tip_decomposition, wing_decomposition
 
-    seconds: dict = {}
     sup0 = tiled = None
     if args.edges:
         g, sup0, tiled = _ingest(args, seconds)
@@ -310,6 +327,7 @@ def _run(args, g, n_dev: int = 1, lead: bool = True) -> dict:
         else:
             g = powerlaw_bipartite(args.n_u, args.n_v, args.m, seed=args.seed)
     print(f"[peel] graph |U|={g.n_u} |V|={g.n_v} |E|={g.m}")
+    seconds["graph"] = g.build_seconds()
 
     common = dict(P=args.parts, engine=args.engine, fd_driver=args.fd_driver,
                   use_pallas=args.use_pallas, fused=args.fused_fd,
@@ -334,13 +352,14 @@ def _run(args, g, n_dev: int = 1, lead: bool = True) -> dict:
         stats_out = s.as_dict()
     seconds["peel"] = time.perf_counter() - t0
     seconds.update(res.seconds)
-    if res.timeline is not None:
-        stats_out["timeline"] = res.timeline.summary()
-        print(f"[peel] timeline: {stats_out['timeline']}")
-    stats_out["theta_sha256"] = sha256_int64(theta)
-    print(f"[peel] theta: max={int(theta.max()) if theta.size else 0} "
-          f"levels={len(set(theta.tolist()))} "
-          f"sha256={stats_out['theta_sha256']}")
+    with obs.span("peel.summary", seconds=seconds, event=False):
+        if res.timeline is not None:
+            stats_out["timeline"] = res.timeline.summary()
+            print(f"[peel] timeline: {stats_out['timeline']}")
+        stats_out["theta_sha256"] = sha256_int64(theta)
+        print(f"[peel] theta: max={int(theta.max()) if theta.size else 0} "
+              f"levels={len(set(theta.tolist()))} "
+              f"sha256={stats_out['theta_sha256']}")
     h = (_emit_hierarchy(args, g, res, seconds)
          if args.emit_hierarchy and lead else None)
     if args.out and lead:
