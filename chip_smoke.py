@@ -64,9 +64,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    held ``torch.equal`` to its plain version (for the whole-graph counts,
    the route ``core.counting`` itself takes) and to the JAX counts;
    wing-60k through ``--kind wing`` (beindex, the default) and
-   ``--engine dense``; its BE-Index through ``ops.bloom_update`` round by
-   round over seeded peel sets, held to the plain version and to the
-   engine's own update every round.
+   ``--engine dense``; its BE-Index built on the card (one
+   ``beindex_wedges`` launch, counted), then through ``ops.bloom_update``
+   round by round over seeded peel sets, held to the plain version and
+   to the engine's own update every round; ``beindex_wedges`` on its CSR
+   held ``torch.equal`` to its plain version and timed.
 9. lm — the dense-family LM serving path and the ``flash_attention``
    kernel: the kernel against its plain version at ChatGLM3-6B's prefill
    shape, D = 64 (GQA), D = 256 (MQA), a ragged non-causal and an offset
@@ -312,6 +314,9 @@ KERNEL_INFO = {
                "src/repro/kernels/butterfly_count.py:149"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:65"),
+    # no JAX kernel: the JAX package's BE-Index build is a host loop
+    "beindex_wedges": ("src/repro_torch/kernels/csrc/beindex.cu",
+                       "src/repro/core/beindex.py:92"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
@@ -1146,7 +1151,30 @@ def phase_engines(engines, fullsize, dev, launches):
                     [*argv, "--parts", str(wf["P"])], engine,
                     (wf, we.get(engine)), dev, launches, seconds)
     rows["bloom_update"] = check_bloom_rounds(we, g, dev, launches, seconds)
+    rows["beindex_wedges"] = check_beindex_wedges(g, dev)
     return rows, seconds
+
+
+def check_beindex_wedges(g, dev):
+    """``ops.beindex_wedges`` on the BE-Index build's CSR of ``g`` against
+    its plain version, slot for slot, then both timed.  The bound is the
+    bytes it has to move: 16 a slot written (an int64 key, two int32
+    edge ids) and the CSR and labels read once."""
+    from repro_torch.core.beindex import _wedge_inputs
+    from repro_torch.kernels import ops, ref
+
+    inputs = _wedge_inputs(g, dev)
+    n_slots = int(inputs[3][-1])
+    got = ops.beindex_wedges(*inputs)
+    want = ref.beindex_wedges_ref(*inputs)
+    expect("beindex_wedges", "dtypes", [t.dtype for t in got],
+           [t.dtype for t in want])
+    del got, want
+    nbytes = 16 * n_slots + sum(t.numel() * t.element_size() for t in inputs)
+    row = check_rows_kernel("beindex_wedges", ops.beindex_wedges,
+                            ref.beindex_wedges_ref, inputs, nbytes)
+    row.update(bound_by="bytes", slots=n_slots)
+    return row
 
 
 def check_bloom_rounds(we, g, dev, launches, seconds):
@@ -1164,8 +1192,10 @@ def check_bloom_rounds(we, g, dev, launches, seconds):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bloom_update import bloom_update
 
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    be = build_beindex(g)
+    be = build_beindex(g, dev)
+    sync(dev)
     seconds["wing-60k build_beindex"] = round(time.perf_counter() - t0, 3)
     got = dict(nb=be.nb, n_links=be.n_links, max_pairs=int(be.bloom_k.max()))
     got.update({f"{k}_sha256": sha_bytes(getattr(be, k))
@@ -1188,7 +1218,6 @@ def check_bloom_rounds(we, g, dev, launches, seconds):
     perm = np.random.default_rng(0).permutation(m)
     cuts = [0, 0, m // 6, m // 2, m]   # fractions 0, 1/6, 1/2, 1
     saved = []
-    ops.reset_launch_counts()
     for r in range(4):
         peeled = torch.zeros(m + 1, dtype=torch.bool, device=dev)
         peeled[torch.from_numpy(perm[cuts[r]:cuts[r + 1]]).to(dev)] = True
@@ -1205,8 +1234,10 @@ def check_bloom_rounds(we, g, dev, launches, seconds):
                       f"at round {r}")
     sync(dev)
     counts = ops.launch_counts()
-    expect("wing-60k bloom rounds", "bloom_update launches",
-           counts["bloom_update"], 4 * (torch.device(dev).type == "cuda"))
+    on_card = torch.device(dev).type == "cuda"
+    expect("wing-60k build and bloom rounds", "launches",
+           {k: counts[k] for k in ("beindex_wedges", "bloom_update")},
+           dict(beindex_wedges=int(on_card), bloom_update=4 * on_card))
     for key, v in counts.items():
         launches[key] = launches.get(key, 0) + v
     sent = m
@@ -3033,14 +3064,17 @@ DIST_CLI = (("wing", ["--kind", "wing", "--engine", "csr"]),
 
 
 def dist_run(label, fn, g, mesh, axis, kw, want_theta, per_round, dev,
-             dense=False, vmapped=False) -> dict:
+             dense=False, vmapped=False, beindex=False) -> dict:
     """One world-1 distributed decomposition with the obs layer on (for
     the ``cd.round`` span seconds): θ's sha256 held to the golden, the
     collectives counted (``per_round`` a CD round, the dense recount 3
     a round and 3 at ⋈init; none in FD; one result gather, none for the
-    vmapped tip FD) and no kernel launched (the distributed bodies are
-    segment sums, as the JAX package's).  Returns θ, stats, the
-    PeelResult and the seconds."""
+    vmapped tip FD) and the kernel launches counted: with ``beindex``
+    the BE-Index build's one ``beindex_wedges`` on the card, and no
+    other (the distributed bodies are segment sums, as the JAX
+    package's).  Returns θ, stats, the PeelResult and the seconds."""
+    import torch
+
     from repro_torch import obs
     from repro_torch.core import distributed as D
     from repro_torch.kernels import ops
@@ -3060,7 +3094,9 @@ def dist_run(label, fn, g, mesh, axis, kw, want_theta, per_round, dev,
     expect(label, "collectives", D.collective_counts(), dict(
         cd=3 * (rho + 1) if dense else per_round * rho, fd=0,
         result=0 if vmapped else 1))
-    expect(label, "kernel launches", sum(ops.launch_counts().values()), 0)
+    expect(label, "kernel launches", ops.launch_counts(), {
+        k: int(k == "beindex_wedges" and beindex
+               and torch.device(dev).type == "cuda") for k in ops.KERNELS})
     expect(label, "cd.round spans", tracer.count("cd.round", ph="X"), rho)
     secs = dict(total=round(dt, 3),
                 **{k: round(v, 3) for k, v in res.seconds.items()},
@@ -3257,7 +3293,7 @@ def phase_distributed(fullsize, engines, large, dev, tmp, launches) -> dict:
         runs["wing-60k beindex bloom_aligned"] = dist_run(
             "wing-60k beindex bloom_aligned", wing, g60, mesh, "peel",
             dict(P_parts=16, engine="beindex", bloom_aligned=True),
-            th["wing60"], 1, dev)
+            th["wing60"], 1, dev, beindex=True)
         runs["wing-60k csr pair_aligned (1, 1) mesh"] = r2 = dist_run(
             "wing-60k csr pair_aligned (1, 1) mesh", wing, g60, mesh2,
             ("grp", "loc"), dict(P_parts=16, engine="csr",

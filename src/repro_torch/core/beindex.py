@@ -6,11 +6,14 @@ over the combined vertex set, ties by id).  Every butterfly lives in
 exactly one bloom (property 2); an edge shares k−1 butterflies with its
 twin and 1 with every other bloom edge (property 1).
 
-Construction happens on the host in numpy (a data-pipeline step);
-peeling consumes the flat arrays on the device through int32
-``index_add_`` (``core.peel._wing_update``), the replacement for the
-paper's atomics.  The port of the JAX package's ``core/beindex.py``:
-the same enumeration order, so every array is equal to the reference's.
+Construction happens on the device that the caller names: the
+``beindex_wedges`` kernel enumerates the filtered wedges of a CSR, and
+stable sorts group them into blooms; the four flat arrays come back to
+the host once, as numpy.  Peeling consumes them on the device through
+int32 ``index_add_`` (``core.peel._wing_update``), the replacement for
+the paper's atomics.  The port of the JAX package's ``core/beindex.py``
+(a host loop): the same enumeration order and bloom numbering, so every
+array is equal to the reference's.
 
 Flat layout (all int32):
     bloom_k[nb]       initial bloom number (alive twin pairs)
@@ -22,12 +25,13 @@ Each twin *pair* contributes two links (e, t) and (t, e).
 from __future__ import annotations
 
 import dataclasses
-from collections import defaultdict
-from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
+from ..kernels import ops
 from .graph import BipartiteGraph
+from .peelspec import _t
 
 __all__ = ["BEIndex", "build_beindex"]
 
@@ -71,68 +75,68 @@ def _priority_labels(g: BipartiteGraph) -> np.ndarray:
     return labels
 
 
-def build_beindex(g: BipartiteGraph) -> BEIndex:
+def build_beindex(g: BipartiteGraph, device=None) -> BEIndex:
     """Enumerate maximal priority blooms from both vertex sides.
 
     For a same-side pair {a, b} with higher-priority member h, the bloom's
     non-dominant set is every common neighbour ``mid`` with
     label(mid) > label(h).  Blooms with k < 2 hold no butterflies and are
-    dropped.  Cost: Σ_mid d_mid² wedge enumerations (host Python).
-    """
-    labels = _priority_labels(g).tolist()
-    eid: Dict[Tuple[int, int], int] = {
-        (int(u), int(v)): i for i, (u, v) in enumerate(g.edges.tolist())
-    }
-    # adjacency lists over combined ids: U vertex u -> u; V vertex v -> n_u+v
-    nbrs = [[] for _ in range(g.n + 1)]
-    for u, v in g.edges.tolist():
-        nbrs[u].append(g.n_u + v)
-        nbrs[g.n_u + v].append(u)
-
-    # blooms[(a, b)] = list of mids (a < b combined ids, same side),
-    # in first-seen order (dict insertion order fixes the bloom ids)
-    blooms: Dict[Tuple[int, int], list] = defaultdict(list)
-    for mid in range(g.n):
-        ns = nbrs[mid]
-        lm = labels[mid]
-        for i in range(len(ns)):
-            a0 = ns[i]
-            la = labels[a0]
-            for j in range(i + 1, len(ns)):
-                a, b = a0, ns[j]
-                # higher-priority endpoint = smaller label
-                if lm > min(la, labels[b]):
-                    if a > b:
-                        a, b = b, a
-                    blooms[(a, b)].append(mid)
-
-    bloom_k, link_edge, link_twin, link_bloom = [], [], [], []
-    nb = 0
-
-    def edge_of(x: int, y: int) -> int:
-        # one of x, y is a U id, the other a combined V id
-        if x < g.n_u:
-            return eid[(x, y - g.n_u)]
-        return eid[(y, x - g.n_u)]
-
-    for (a, b), mids in blooms.items():
-        k = len(mids)
-        if k < 2:
-            continue
-        bid = nb
-        nb += 1
-        bloom_k.append(k)
-        for mid in mids:
-            e1 = edge_of(a, mid)
-            e2 = edge_of(b, mid)
-            link_edge.extend((e1, e2))
-            link_twin.extend((e2, e1))
-            link_bloom.extend((bid, bid))
-
+    dropped.  Cost: Σ_mid C(d_mid, 2) wedge slots, enumerated on
+    ``device`` (default the CPU) by ``ops.beindex_wedges`` in the order
+    (mid, i, j) of the reference's loop, then grouped by stable sorts:
+    a bloom's wedges keep mid order, and blooms are numbered by their
+    first-seen wedge, the loop's dict insertion order."""
+    dev = torch.device("cpu" if device is None else device)
+    key, e_lo, e_hi = ops.beindex_wedges(*_wedge_inputs(g, dev))
+    keep = key >= 0
+    key, e_lo, e_hi = key[keep], e_lo[keep], e_hi[keep]
+    # group equal keys; stable, so a group's first element is its
+    # first-seen wedge and its wedges stay in enumeration (mid) order
+    key, perm = torch.sort(key, stable=True)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    group = torch.cumsum(head, 0) - 1
+    start = torch.nonzero(head).flatten()
+    size = torch.diff(start, append=start.new_tensor([key.numel()]))
+    blooms = torch.nonzero(size >= 2).flatten()
+    blooms = blooms[torch.argsort(perm[start[blooms]])]
+    bid = torch.full_like(size, -1)
+    bid[blooms] = torch.arange(blooms.numel(), device=dev)
+    wedge_bid = bid[group]
+    inb = wedge_bid >= 0
+    wedge_bid, order = torch.sort(wedge_bid[inb], stable=True)
+    wedge = perm[inb][order]
+    lo, hi = e_lo[wedge], e_hi[wedge]
+    # each wedge is a twin pair: links (e_lo, e_hi) and (e_hi, e_lo)
     return BEIndex(
-        nb=nb,
-        bloom_k=np.asarray(bloom_k, dtype=np.int32).reshape(-1),
-        link_edge=np.asarray(link_edge, dtype=np.int32).reshape(-1),
-        link_twin=np.asarray(link_twin, dtype=np.int32).reshape(-1),
-        link_bloom=np.asarray(link_bloom, dtype=np.int32).reshape(-1),
+        nb=int(blooms.numel()),
+        bloom_k=_host(size[blooms]),
+        link_edge=_host(torch.stack([lo, hi], 1).flatten()),
+        link_twin=_host(torch.stack([hi, lo], 1).flatten()),
+        link_bloom=_host(wedge_bid.repeat_interleave(2)),
     )
+
+
+def _wedge_inputs(g: BipartiteGraph, dev: torch.device) -> tuple:
+    """``ops.beindex_wedges``' inputs on ``dev``: the combined-id CSR
+    (U vertex u -> u, V vertex v -> n_u + v; each row in edge-index
+    order, by a stable sort), its row offsets and C(d, 2) slot offsets,
+    and the int32 priority labels."""
+    du, dv = g.degrees()
+    deg = np.concatenate([du, dv])
+    row_off = np.zeros(g.n + 1, dtype=np.int64)
+    np.cumsum(deg, out=row_off[1:])
+    slot_off = np.zeros(g.n + 1, dtype=np.int64)
+    np.cumsum(deg * (deg - 1) // 2, out=slot_off[1:])
+    e = _t(g.edges, dev).to(torch.int64)
+    u, v = e[:, 0], e[:, 1] + g.n_u
+    row = torch.sort(torch.cat([u, v]), stable=True).indices
+    nbr = torch.cat([v, u])[row].to(torch.int32)
+    eid = torch.arange(g.m, dtype=torch.int32, device=dev).repeat(2)[row]
+    return (nbr, eid, _t(row_off, dev), _t(slot_off, dev),
+            _t(_priority_labels(g).astype(np.int32), dev))
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """An int32 host copy of a device tensor."""
+    return x.to(torch.int32).cpu().numpy()

@@ -1293,7 +1293,7 @@ def distributed_wing_decomposition(
     dev = _rank_device(mesh, device)
     idx, n_dev = _position(mesh, axis)
     if be is None:
-        be = build_beindex(g)
+        be = build_beindex(g, dev)
     m = g.m
     if bloom_aligned:
         packed = shard_links_bloom_aligned(be, m, n_dev)

@@ -684,7 +684,7 @@ def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
     m = g.m
     if be is None:
         with _span("spec.beindex", sec):
-            be = build_beindex(g)
+            be = build_beindex(g, device)
     nb = max(be.nb, 1)
     with _span("spec.supports", sec):
         sup0 = be.edge_support(m)

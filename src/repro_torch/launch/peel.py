@@ -447,7 +447,7 @@ def _dryrun(n: int = 512) -> int:
         mesh = make_peel_mesh(n, device="cpu")
         g = powerlaw_bipartite(400, 200, 2000, seed=1)
         m = g.m
-        be = build_beindex(g)
+        be = build_beindex(g, dev)
         wed = csr.build_wedges(g)
         bf0 = wed.pair_butterflies0()
         pe_m = torch.zeros((m + 1,), dtype=torch.bool)

@@ -69,7 +69,11 @@ name / cat             ph          sinks  meaning
                                           ``edge_support``, bloom numbers;
                                           dense: the first count)
 ``spec.beindex``       —           P S    ``build_beindex`` of the beindex
-                                          spec
+                                          spec, on the spec's device: the
+                                          CSR and labels, the
+                                          ``beindex_wedges`` launch, the
+                                          bloom sorts and the download of
+                                          the four arrays
 ``spec.upload``        —           P S    the spec's copies to the device
 ``fd.pack``            —           P S    an FD driver's host preparation of
                                           its partition arrays and their

@@ -3,7 +3,9 @@
 Every test here needs an NVIDIA card (marker ``cuda``); the ``card``
 fixture skips them where ``torch.cuda.is_available()`` is False.  The
 file imports no JAX (the card's machine has none): inputs come from the
-port's own packers on small graphs.  Run on a machine with a card::
+port's own packers on small graphs, and the BE-Index build is held to the
+JAX package's index as recorded in ``tests/goldens/torch_beindex.json``
+and ``torch_engines.json``.  Run on a machine with a card::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -19,7 +21,8 @@ from repro_torch.core import counting, csr, peel, peelspec
 from repro_torch.core.beindex import build_beindex
 from repro_torch.core.distributed import (pack_fd_partitions_csr,
                                           pack_fd_partitions_tip_csr)
-from repro_torch.core.graph import powerlaw_bipartite, random_bipartite
+from repro_torch.core.graph import (BipartiteGraph, powerlaw_bipartite,
+                                   random_bipartite)
 from repro_torch.kernels import _build, flash_attention, ops, ref
 from repro_torch.kernels.bloom_update import bloom_update
 from repro_torch.kernels.butterfly_count import (matmul, pack_s8,
@@ -394,6 +397,64 @@ def test_bloom_update_kernel_equals_plain(card, gname, frac):
     assert torch.equal(sup0 - loss.to(torch.int32), sup_l)
     assert torch.equal(k_alive[: be.nb].to(torch.int32) - c[: be.nb].to(
         torch.int32), k_l)
+
+
+# the JAX package's BE-Index of small graphs, recorded with their edges by
+# tests/goldens/record_torch_beindex.py (held to JAX by the CPU tests)
+BE_GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
+                         "torch_beindex.json")
+BE_ARRAYS = ("bloom_k", "link_edge", "link_twin", "link_bloom")
+
+
+def _recorded_graph(name):
+    """A ``torch_beindex.json`` graph, its edge rows in recorded order."""
+    with open(BE_GOLDEN) as f:
+        rec = json.load(f)[name]
+    return rec, BipartiteGraph(rec["n_u"], rec["n_v"], np.asarray(
+        rec["edges"], dtype=np.int32).reshape(-1, 2))
+
+
+@pytest.mark.parametrize("gname", [*sorted(GRAPHS), "numpy", "tied_degrees",
+                                   "unsorted_rows"])
+def test_beindex_wedges_kernel_equals_plain(card, gname):
+    from repro_torch.core.beindex import _wedge_inputs
+
+    g = GRAPHS[gname]() if gname in GRAPHS else _recorded_graph(gname)[1]
+    got, n = _launched("beindex_wedges",
+                       lambda: ops.beindex_wedges(*_wedge_inputs(g, card)))
+    assert n == 1
+    want = ref.beindex_wedges_ref(*_wedge_inputs(g, torch.device("cpu")))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["numpy", "pl60", "pl80", "rb25", "rb30",
+                                  "no_edges", "no_butterflies",
+                                  "isolated_and_degree1", "tied_degrees",
+                                  "unsorted_rows", "wing-60k"])
+def test_build_beindex_on_the_card_equals_the_reference(card, name):
+    """The CUDA build's nb and four arrays against the JAX package's
+    index, recorded by the sha256 of each array; one ``beindex_wedges``
+    launch a build."""
+    import hashlib
+
+    if name == "wing-60k":
+        with open(os.path.join(os.path.dirname(BE_GOLDEN),
+                               "torch_engines.json")) as f:
+            rec = json.load(f)["wing-60k"]
+        g = powerlaw_bipartite(**rec["graph"])
+    else:
+        rec, g = _recorded_graph(name)
+    be, n = _launched("beindex_wedges", lambda: build_beindex(g, card))
+    assert n == 1
+    got = dict(nb=be.nb, n_links=be.n_links)
+    if "max_pairs" in rec["index"]:
+        got["max_pairs"] = int(be.bloom_k.max())
+    for k in BE_ARRAYS:
+        a = getattr(be, k)
+        assert isinstance(a, np.ndarray) and a.dtype == np.int32, k
+        got[f"{k}_sha256"] = hashlib.sha256(a.tobytes()).hexdigest()
+    assert got == rec["index"]
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(card):

@@ -3,7 +3,11 @@ package.
 
 * all 32 beindex and dense cells of ``tests/goldens/peel_goldens.json``,
   field for field;
-* ``build_beindex`` array-equal to the reference's;
+* ``build_beindex`` array-equal to the reference's, on the edge cases
+  too (no butterflies, isolated and degree-1 vertices, tied degrees,
+  unsorted edge rows), and ``torch_beindex.json``, the card tests'
+  record of the reference, held to it; the ``beindex_wedges`` kernel's
+  closed-form slot decode checked on rows up to 2**20 neighbours;
 * the BE-Index update (``_wing_update``), one ``ops.bloom_update`` round
   against it (the JAX test's identity), the dense tip engine under every
   ``batch_recount`` setting and the dense wing engine with an injected
@@ -53,6 +57,12 @@ CELLS = sorted(
     + [f"tip.{g}.P{P}.{s}.dense.device" for g in GRAPHS for P in (3, 6)
        for s in "uv"])
 BE_ARRAYS = ("bloom_k", "link_edge", "link_twin", "link_bloom")
+# the JAX package's BE-Index of small graphs, recorded for the card tests
+# by ``tests/goldens/record_torch_beindex.py``; the edge cases' graphs
+# are defined there
+BE_GOLDEN = os.path.join(os.path.dirname(GOLDENS), "torch_beindex.json")
+BE_EDGE_CASES = ("no_edges", "no_butterflies", "isolated_and_degree1",
+                 "tied_degrees", "unsorted_rows")
 
 
 def _graph_pair(seed, n_u=18, n_v=14, m=80):
@@ -100,13 +110,25 @@ def test_cells_are_all_the_goldens_of_the_two_engines(goldens):
     assert CELLS == sorted(k for k in goldens if "csr" not in k.split("."))
 
 
-@pytest.mark.parametrize("name", [*sorted(GRAPHS), "numpy"])
+def _recorded_graph_pair(name):
+    """Both packages' graphs of a ``torch_beindex.json`` entry, with its
+    edge rows in their recorded order."""
+    with open(BE_GOLDEN) as f:
+        rec = json.load(f)[name]
+    e = np.asarray(rec["edges"], dtype=np.int32).reshape(-1, 2)
+    return (JGraph(rec["n_u"], rec["n_v"], e),
+            tgraph.BipartiteGraph(rec["n_u"], rec["n_v"], e.copy()))
+
+
+@pytest.mark.parametrize("name", [*sorted(GRAPHS), "numpy", *BE_EDGE_CASES])
 def test_build_beindex_equals_reference(name):
     if name == "numpy":
         jg, tg = _graph_pair(7, n_u=25, n_v=19, m=160)
-    else:
+    elif name in GRAPHS:
         tg = GRAPHS[name]()
         jg = JGraph.from_edges(tg.n_u, tg.n_v, tg.edges)
+    else:
+        jg, tg = _recorded_graph_pair(name)
     want = jbuild_beindex(jg)
     got = build_beindex(tg)
     assert got.nb == want.nb and got.n_links == want.n_links
@@ -117,6 +139,95 @@ def test_build_beindex_equals_reference(name):
     assert got.total_butterflies() == want.total_butterflies()
     np.testing.assert_array_equal(got.edge_support(tg.m),
                                   want.edge_support(tg.m))
+
+
+def _index_digest(be) -> dict:
+    import hashlib
+
+    out = dict(nb=be.nb, n_links=be.n_links)
+    out.update({f"{k}_sha256": hashlib.sha256(getattr(be, k).tobytes())
+                .hexdigest() for k in BE_ARRAYS})
+    return out
+
+
+@pytest.mark.parametrize("name", [*sorted(GRAPHS), "numpy", *BE_EDGE_CASES])
+def test_recorded_beindex_is_the_reference(name):
+    """``torch_beindex.json``, which the card tests hold the CUDA build
+    to, is the JAX package's index of its graphs, and each edge case is
+    what its name says."""
+    jg, tg = _recorded_graph_pair(name)
+    if name == "numpy":
+        want = _graph_pair(7, n_u=25, n_v=19, m=160)[1]
+    elif name in GRAPHS:
+        want = GRAPHS[name]()
+    else:
+        want = tg
+    np.testing.assert_array_equal(tg.edges, want.edges)
+    with open(BE_GOLDEN) as f:
+        rec = json.load(f)[name]["index"]
+    assert _index_digest(jbuild_beindex(jg)) == rec
+    du, dv = tg.degrees()
+    if name in ("no_edges", "no_butterflies"):
+        assert rec["nb"] == rec["n_links"] == 0
+        assert build_beindex(tg).total_butterflies() == 0
+        assert (name == "no_edges") == (tg.m == 0)
+    elif name == "isolated_and_degree1":
+        assert min(du.min(), dv.min()) == 0
+        assert (du == 1).any() and (dv == 1).any() and rec["nb"] > 0
+    elif name == "tied_degrees":
+        assert len(set(du) | set(dv)) == 1 and rec["nb"] > 0
+    elif name == "unsorted_rows":
+        order = np.lexsort((tg.edges[:, 1], tg.edges[:, 0]))
+        assert (order != np.arange(tg.m)).any() and rec["nb"] > 0
+
+
+def _slot_decode_model(slot_off, row_off, s):
+    """``csrc/beindex.cu``'s slot -> (mid, i, j) in int64/float64 numpy:
+    the binary search over ``slot_off``, the closed-form slot row and its
+    one-step corrections (counted), as the kernel's threads run them."""
+    n = slot_off.size - 1
+    mid, hi = np.zeros_like(s), np.full_like(s, n)
+    while (hi - mid > 1).any():
+        live = hi - mid > 1
+        m = (mid + hi) >> 1
+        below = slot_off[m] <= s
+        mid = np.where(live & below, m, mid)
+        hi = np.where(live & ~below, m, hi)
+    t = s - slot_off[mid]
+    d = row_off[mid + 1] - row_off[mid]
+
+    def tri(i):
+        return i * (2 * d - i - 1) // 2
+
+    q = (2 * d - 1).astype(np.float64)
+    i = np.floor((q - np.sqrt(q * q - 8.0 * t)) * 0.5).astype(np.int64)
+    i = np.clip(i, 0, d - 2)
+    fixes = 0
+    while ((i > 0) & (tri(i) > t)).any():
+        i = np.where((i > 0) & (tri(i) > t), i - 1, i)
+        fixes += 1
+    while ((i < d - 2) & (tri(i + 1) <= t)).any():
+        i = np.where((i < d - 2) & (tri(i + 1) <= t), i + 1, i)
+        fixes += 1
+    return mid, i, i + 1 + t - tri(i), fixes
+
+
+def test_beindex_slot_decode_is_exact_on_long_rows():
+    """Rows up to 2**20 neighbours: every slot's (i, j) from the closed
+    form lies in its slot row, with at most one correction step."""
+    deg = np.array([2, 3, 7, 730, 4_096, 100_003, 1 << 20], dtype=np.int64)
+    row_off = np.concatenate([[0], np.cumsum(deg)])
+    slot_off = np.concatenate([[0], np.cumsum(deg * (deg - 1) // 2)])
+    rng = np.random.default_rng(0)
+    s = np.unique(np.concatenate([
+        slot_off[:-1], slot_off[1:] - 1, slot_off[:-1] + 1,
+        rng.integers(0, slot_off[-1], 200_000)]))
+    mid, i, j, fixes = _slot_decode_model(slot_off, row_off, s)
+    d = deg[mid]
+    t = s - slot_off[mid]
+    assert fixes <= 1
+    assert ((0 <= i) & (i < j) & (j < d)).all()
+    assert (i * (2 * d - i - 1) // 2 + (j - i - 1) == t).all()
 
 
 def test_build_beindex_on_wing_60k_equals_the_recorded_index():
@@ -268,7 +379,7 @@ def test_chip_smoke_engine_phase_rehearsed_on_cpu(monkeypatch):
     launches = {}
     rows, seconds = smoke.phase_engines(engines, fullsize, "cpu", launches)
     assert set(rows) == {"vertex_count", "vertex_count_tile", "matmul",
-                         "bloom_update"}
+                         "bloom_update", "beindex_wedges"}
     assert all(r["max_abs_err"] == 0.0 for r in rows.values())
     assert launches and not any(launches.values())
     assert {"dense-16k --kind tip --engine dense", "wing-60k --kind wing",
