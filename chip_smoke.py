@@ -53,7 +53,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    kernels at full size, held to ``tests/goldens/torch_engines.json``
    (recorded by ``tests/goldens/record_torch_engines.py``) and
    ``torch_fullsize.json``: dense-16k (16 384² adjacency) through
-   ``--kind tip --engine dense``, then ``ops.vertex_butterflies``,
+   ``--kind tip --engine dense`` (its ⋈init, and each batch re-count,
+   one ``vertex_count`` launch, counted), then ``ops.vertex_butterflies``,
    ``ops.vertex_butterflies_tiled`` and ``ops.edge_wedge_matrix`` on its
    adjacency (``vertex_count``, ``vertex_count_tile`` — int8 on the
    tensor cores, timed through the f32 interface, on pre-packed int8
@@ -317,6 +318,10 @@ KERNEL_INFO = {
     # no JAX kernel: the JAX package's BE-Index build is a host loop
     "beindex_wedges": ("src/repro_torch/kernels/csrc/beindex.cu",
                        "src/repro/core/beindex.py:92"),
+    # no JAX kernel: the JAX package peels each dense tip partition from
+    # a host loop
+    "fd_tip_dense": ("src/repro_torch/kernels/csrc/fd_tip_dense.cu",
+                     "src/repro/core/peel.py:702"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
@@ -963,18 +968,36 @@ def matmul_random_error(dev) -> dict:
 def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
     """A CLI run of the dense or beindex engine; θ, partition, ⋈init,
     ranges and the engine-independent stats held to ``wants[0]``, every
-    stat to ``wants[1]`` (the JAX run of the same engine) where given."""
+    stat to ``wants[1]`` (the JAX run of the same engine) where given.
+    The kernel launches counted on the card: the dense tip counts its
+    ⋈init and each §5.1 batch re-count with one ``vertex_count`` and
+    peels its FD phase with one ``fd_tip_dense``, the beindex engine
+    builds its index with one ``beindex_wedges``, and nothing else
+    launches a kernel.  Returns the run's PeelResult."""
+    import torch
+
+    from repro_torch.kernels import ops
+
     got, counts, dt, out = cli_peel(g, argv, dev)
     expect(label, "engine", out["engine"], engine)
     hold(label, got, wants[0], stats=ENGINE_FREE_STATS)
     if wants[1] is not None:
         hold(label, got, wants[1])
+    want = dict.fromkeys(ops.KERNELS, 0)
+    if torch.device(dev).type == "cuda":
+        if engine == "dense" and "tip" in argv:
+            want["vertex_count"] = 1 + got["stats"]["recounts"]
+            want["fd_tip_dense"] = 1
+        if engine == "beindex":
+            want["beindex_wedges"] = 1
+    expect(label, "kernel launches", counts, want)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     seconds[label] = {k: round(v, 3) for k, v in out["seconds"].items()}
     log(f"[smoke]   {label}: θ, partition, ⋈init, ranges and stats match "
         f"the JAX package in {dt:.1f} s ({seconds[label]}); stats "
         f"{got['stats']}")
+    return out["result"]
 
 
 def phase_engines(engines, fullsize, dev, launches):
@@ -998,10 +1021,11 @@ def phase_engines(engines, fullsize, dev, launches):
     g = powerlaw_bipartite(**want["graph"])
     expect("dense-16k", "edges sha256", sha256_int64(g.edges),
            want["edges_sha256"])
-    engines_cli("dense-16k --kind tip --engine dense", g,
-                ["--kind", "tip", "--side", want["side"], "--engine",
-                 "dense", "--parts", str(want["P"])], "dense",
-                (want["csr"], want.get("dense")), dev, launches, seconds)
+    res = engines_cli("dense-16k --kind tip --engine dense", g,
+                      ["--kind", "tip", "--side", want["side"], "--engine",
+                       "dense", "--parts", str(want["P"])], "dense",
+                      (want["csr"], want.get("dense")), dev, launches,
+                      seconds)
 
     # the kernels' main path: the public ops entry points on its adjacency
     A = torch.from_numpy(g.adjacency()).to(dev)
@@ -1026,8 +1050,7 @@ def phase_engines(engines, fullsize, dev, launches):
         launches[key] = launches.get(key, 0) + v
     seconds["dense-16k ops (vertex_butterflies, _tiled, edge_wedge_matrix)"] \
         = round(dt, 3)
-    exact_v = torch.round(vb.double()).to(i64)
-    require_equal("vertex_count_tile", (vt,), (exact_v,),
+    require_equal("vertex_count_tile", (vt,), (vb,),
                   "as ops.vertex_butterflies_tiled vs ops.vertex_butterflies")
     expect("dense-16k", "vertex butterflies sha256",
            sha256_int64(vt.cpu().numpy()), want["vertex_butterflies_sha256"])
@@ -1043,21 +1066,22 @@ def phase_engines(engines, fullsize, dev, launches):
     log(f"[smoke]   dense-16k ops: vertex_butterflies equals _tiled (16 "
         f"strips) and edge_wedge_matrix core.counting; both counts equal the "
         f"JAX ones; {dt:.2f} s, launches {counts}")
-    del vb, vt, exact_v, per_edge
+    del vb, vt, per_edge
     torch.cuda.empty_cache()
 
     # each kernel against its plain version at these shapes, timed.  The
     # plain vertex count is core.counting's dense route (no single
     # library call); W = A·Aᵀ is symmetric, so its function needs only
     # the n(n−1)/2 off-diagonal pairs: n(n−1)k operations, not 2n²k.
-    # The bound prices the f32 interface (pack included); beside it the
-    # kernels on pre-packed int8 operands, the pack alone, and
-    # torch._int_mm of the packed operands (the whole int8 product, a
-    # yardstick only: it does not compute these functions).
+    # The bound prices the f32 interface (pack included, int64 counts
+    # out); beside it the kernels on pre-packed int8 operands, the pack
+    # alone, and torch._int_mm of the packed operands (the whole int8
+    # product, a yardstick only: it does not compute these functions).
+    rows["fd_tip_dense"] = check_fd_tip_dense(A, res, dev)
     rows["vertex_count"] = check_compute_kernel(
         "vertex_count", lambda a: (vertex_count(a),),
         lambda a: (ref.vertex_butterflies_ref(a),), (A,),
-        float(n * (n - 1) * k), 4 * n * k + 4 * n, INT8_OP_PER_S, 3,
+        float(n * (n - 1) * k), 4 * n * k + 8 * n, INT8_OP_PER_S, 3,
         fp32_bound=True)
     rows["vertex_count"]["library"] = \
         "none (no single call; the plain version is core.counting's route)"
@@ -1065,7 +1089,7 @@ def phase_engines(engines, fullsize, dev, launches):
     rows["vertex_count_tile"] = check_compute_kernel(
         "vertex_count_tile", lambda s, a: (vertex_count_tile(s, a),),
         lambda s, a: (ref.vertex_count_tile_ref(s, a),), (strip, A),
-        2.0 * 1024 * n * k, 4 * (1024 + n) * k + 4 * 1024, INT8_OP_PER_S, 5,
+        2.0 * 1024 * n * k, 4 * (1024 + n) * k + 8 * 1024, INT8_OP_PER_S, 5,
         fp32_bound=True)
     A8 = pack_s8(A)
     require_equal("pack_s8", (A8,), (ref.pack_s8_ref(A)[0],),
@@ -1174,6 +1198,45 @@ def check_beindex_wedges(g, dev):
     row = check_rows_kernel("beindex_wedges", ops.beindex_wedges,
                             ref.beindex_wedges_ref, inputs, nbytes)
     row.update(bound_by="bytes", slots=n_slots)
+    return row
+
+
+def check_fd_tip_dense(A, res, dev):
+    """``ops.fd_tip_dense`` on the FD phase of the dense tip run ``res``
+    (its partition and FD initial supports, the pair matrix of ``A``)
+    against its plain version, entry for entry, then both timed.  θ
+    equals the run's.  The bound is the bytes it has to move: each pair
+    entry inside a partition read once (8 bytes), the supports and ids
+    read, θ and the round records written."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import peel
+    from repro_torch.kernels import ops, ref
+
+    part = np.asarray(res.part, dtype=np.int64)
+    P = int(part.max()) + 1
+    order = np.argsort(part, kind="stable")
+    sizes = np.bincount(part, minlength=P)
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    pair = peel._pair_butterflies(A)
+    inputs = (pair,
+              torch.from_numpy(order.astype(np.int32)).to(dev),
+              torch.from_numpy(off).to(dev),
+              torch.from_numpy(np.asarray(res.support_init, np.int64)[order])
+              .to(dev))
+    theta = np.empty(part.size, dtype=np.int64)
+    theta[order] = ops.fd_tip_dense(*inputs)[0].cpu().numpy()
+    require_equal("fd_tip_dense", (torch.from_numpy(theta),),
+                  (torch.from_numpy(np.asarray(res.theta, np.int64)),),
+                  "θ as the dense tip run's")
+    # pair entries; ids, supports, θ and records a vertex; off, rounds
+    nbytes = (8 * int((sizes ** 2).sum()) + (4 + 8 + 8 + 24) * part.size
+              + 8 * (P + 1) + 4 * P)
+    row = check_rows_kernel("fd_tip_dense", ops.fd_tip_dense,
+                            ref.fd_tip_dense_ref, inputs, nbytes, reps=3)
+    row.update(bound_by="bytes", partitions=P)
+    del pair, inputs
     return row
 
 
@@ -4177,8 +4240,9 @@ def deepseek_f32(spec, dev, launches, affinity_P) -> tuple:
         p.numel() * p.element_size() for p in model.parameters()) / 1e9)
     b, s = spec["batch"], spec["seq"]
     # uniform tokens: the router's top k of Zipf tokens share experts so
-    # much that moe_affinity's butterfly counts pass f32's exact range
-    # (the dense engine's OverflowError, as in JAX)
+    # much that moe_affinity's butterfly counts pass f32's exact range,
+    # where the JAX package's dense engine raises OverflowError (the
+    # port's are int64, exact to 2^53)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
     last, info["prefill_s"] = counted_prefills(
         f"{cfg.name} f32 prefill", model, tokens, dev, launches)

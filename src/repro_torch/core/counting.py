@@ -11,13 +11,22 @@ products:
 All functions take an ``alive``-masked adjacency so the same code performs
 the paper's §5.1 batch *re-counting* during peeling.  The port of the JAX
 package's ``core/counting.py``; the products stay ``torch.matmul``, as
-the reference leaves them to ``lax.dot`` outside any kernel (the
-hand-written kernels of the same functions are ``kernels.ops.
-vertex_butterflies`` / ``edge_wedge_matrix``).
+the reference leaves them to ``lax.dot`` outside any kernel, except the
+per-vertex count on a CUDA tensor, which is the int8 ``vertex_count``
+kernel (``kernels.ops.vertex_butterflies``; the hand-written kernels of
+the per-edge count are ``kernels.ops.edge_wedge_matrix``).
 
-Counts are exact in float32 for values < 2^24; ``assert_exact`` guards
-it.  Every product runs in full float32 (``matmul_f32``): TF32 would
-round the C(W, 2) values the dense engine multiplies.
+Every count is an exact integer.  W = A·Aᵀ is exact in float32 (its
+entries are common-neighbour counts, at most n_v < 2²⁴).  The per-vertex
+butterflies (``vertex_butterflies``, its blocked route,
+``recount_vertex``, ``total_butterflies``) are int64: C(W, 2) and the
+row sums are taken in int64 on the CPU, and in the kernel's int64
+accumulator on the card, so they do not round where the JAX package's
+float32 sums do (past 2²⁴).  The per-edge counts stay float32, exact
+below 2²⁴.  ``assert_exact`` guards each type at its limit: 2²⁴ for
+float32; 2⁵³ for float64 and for int64, whose sums the dense tip engine
+carries through float64 products.  Every float32 product runs in full
+float32 (``matmul_f32``): TF32 would round the counts.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import os
 import torch
 
 from .. import obs
-from ..kernels import ref
+from ..kernels import ops, ref
 from ..kernels.ref import matmul_f32
 
 __all__ = [
@@ -56,10 +65,6 @@ def wedge_counts(A: torch.Tensor) -> torch.Tensor:
     return matmul_f32(A, A.T)
 
 
-def _choose2(x: torch.Tensor) -> torch.Tensor:
-    return x * (x - 1.0) * 0.5
-
-
 def _dense_limit() -> int:
     """Element budget for materializing the full n×n wedge matrix W
     (shared knob with the dense peel engine's guard)."""
@@ -67,14 +72,19 @@ def _dense_limit() -> int:
 
 
 def vertex_butterflies(A: torch.Tensor, block: int = 512) -> torch.Tensor:
-    """⋈ for every row vertex of A (mask rows for tip peeling).
+    """int64 ⋈ for every row vertex of A (mask rows for tip peeling).
 
-    When the full wedge matrix W = A·Aᵀ would exceed
-    ``REPRO_DENSE_MAX_ELEMS`` elements, the reduction routes itself
-    through the row-blocked path (:func:`vertex_butterflies_blocked`,
-    O(block·n) peak) instead of failing; W is only ever consumed as row
-    sums here, so the tiling is exact and invisible to callers.  An obs
-    ``counting.tiles`` counter records when it fires."""
+    On a CUDA tensor the ``vertex_count`` kernel counts them
+    (``ops.vertex_butterflies``, looked up at call time; A must be 0/1):
+    it never stores W, so it needs no blocked route.  On the CPU, when
+    the full wedge matrix W = A·Aᵀ would exceed ``REPRO_DENSE_MAX_ELEMS``
+    elements, the reduction routes itself through the row-blocked path
+    (:func:`vertex_butterflies_blocked`, O(block·n) peak) instead of
+    failing; W is only ever consumed as row sums here, so the tiling is
+    exact and invisible to callers.  An obs ``counting.tiles`` counter
+    records when it fires."""
+    if A.device.type == "cuda":
+        return ops.vertex_butterflies(A)
     n = A.shape[0]
     if n * n > _dense_limit():
         obs.counter("counting.tiles", dict(
@@ -85,16 +95,17 @@ def vertex_butterflies(A: torch.Tensor, block: int = 512) -> torch.Tensor:
 
 def vertex_butterflies_blocked(A: torch.Tensor,
                                block: int = 512) -> torch.Tensor:
-    """Row-blocked variant — O(block·n) peak memory instead of O(n²)."""
+    """Row-blocked variant — O(block·n) peak memory instead of O(n²);
+    int64."""
     n = A.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=A.device)
+    out = torch.empty((n,), dtype=torch.int64, device=A.device)
     cols = torch.arange(n, device=A.device)
     for r0 in range(0, n, block):
         blk = A[r0:r0 + block]
         W = matmul_f32(blk, A.T)
         rows = torch.arange(r0, r0 + blk.shape[0], device=A.device)
         W = torch.where(rows[:, None] == cols[None, :], 0.0, W)
-        out[r0:r0 + blk.shape[0]] = torch.sum(_choose2(W), dim=1)
+        out[r0:r0 + blk.shape[0]] = ref.choose2_row_sums(W)
     return out
 
 
@@ -108,8 +119,9 @@ def edge_butterflies(A: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 
 
 def total_butterflies(A: torch.Tensor) -> torch.Tensor:
-    """⋈(G): each butterfly counts once per U endpoint, so halve."""
-    return torch.sum(vertex_butterflies(A)) / 2.0
+    """⋈(G), int64: each butterfly counts once per U endpoint, so
+    halve."""
+    return torch.sum(vertex_butterflies(A)) // 2
 
 
 def vertex_wedge_workload(A: torch.Tensor) -> torch.Tensor:
@@ -120,17 +132,29 @@ def vertex_wedge_workload(A: torch.Tensor) -> torch.Tensor:
 
 def recount_vertex(shape, A: torch.Tensor,
                    alive_u: torch.Tensor) -> torch.Tensor:
-    """Batch re-count for tip CD: butterflies among alive row vertices."""
+    """Batch re-count for tip CD: butterflies among alive row vertices
+    (int64)."""
     Am = A * alive_u[:, None].to(A.dtype)
     return vertex_butterflies(Am)
 
 
+# the exclusive limit of exact integer counts in each type that carries
+# them: float32's significand; float64's; int64 counts feed the dense
+# tip engine's float64 pair-butterfly products, so float64's
+_EXACT_BELOW = {torch.float32: ("f32", 2 ** 24),
+                torch.float64: ("float64", 2 ** 53),
+                torch.int64: ("float64", 2 ** 53)}
+
+
 def assert_exact(x: torch.Tensor) -> None:
-    """Counts must stay below f32's exact-integer range."""
-    if bool(torch.any(torch.abs(x) >= 2 ** 24)):
+    """Counts must stay inside the exact-integer range of the type that
+    carries them (``_EXACT_BELOW``); raises ``OverflowError`` at the
+    limit, so a count is never rounded."""
+    name, limit = _EXACT_BELOW[x.dtype]
+    if bool(torch.any(torch.abs(x) >= limit)):
         raise OverflowError(
-            "butterfly counts exceed f32 exact range; use the blocked/"
-            "int path or smaller graphs on this container"
+            f"butterfly counts exceed {name} exact range (2^"
+            f"{limit.bit_length() - 1}); use the csr engine"
         )
 
 

@@ -66,7 +66,6 @@ from .peelspec import (
 )
 from .. import obs
 from ..kernels import ops as kops
-from ..kernels.ref import matmul_f32
 
 __all__ = [
     "PeelStats",
@@ -83,8 +82,8 @@ __all__ = [
 _I32 = torch.int32
 # the spec's ``seconds`` keys (spans of the spec build and of the FD
 # drivers' packs), each 0 where the spec has no such step
-SPEC_SECONDS = ("spec.wedges", "spec.supports", "spec.beindex",
-                "spec.upload", "fd.pack")
+SPEC_SECONDS = ("spec.wedges", "spec.supports", "spec.pairs",
+                "spec.beindex", "spec.upload", "fd.pack")
 
 
 def _span(name: str, sec: Optional[dict]):
@@ -290,28 +289,38 @@ def _tip_recount(A: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
 
 
 def _tip_fd_delta(pair_bf: torch.Tensor, peel: torch.Tensor) -> torch.Tensor:
-    """Δ⋈_u' = Σ_{u peeled} (butterflies shared by pair (u', u))."""
-    return matmul_f32(pair_bf, peel.to(pair_bf.dtype))
+    """Δ⋈_u' = Σ_{u peeled} (butterflies shared by pair (u', u)), int64.
+    A float64 matrix–vector product of integers: exact, since every
+    partial sum is at most u''s ⋈init, which ``assert_exact`` holds
+    below 2⁵³."""
+    return torch.mv(pair_bf, peel.to(pair_bf.dtype)).to(torch.int64)
 
 
 def _pair_butterflies(A: torch.Tensor) -> torch.Tensor:
-    """The static pair-butterfly matrix C(W, 2) with a zero diagonal,
-    formed on the host as the JAX package forms it (W copied out,
-    ``fill_diagonal``, C(W, 2) in f32) and sent back to A's device."""
-    W = counting.wedge_counts(A).cpu().numpy()
-    np.fill_diagonal(W, 0)
-    return _t(W * (W - 1) / 2, A.device)
+    """The static pair-butterfly matrix C(W, 2) with a zero diagonal, in
+    float64 on A's device.  W = A·Aᵀ is exact in float32 (its entries are
+    at most n_v < 2²⁴), each C(W, 2) is below 2⁴⁷, and float64 holds
+    them and the cascades' sums of them exactly (the JAX package forms
+    C(W, 2) in float32 on the host, exact while the sums stay below
+    2²⁴)."""
+    W = counting.wedge_counts(A).to(torch.float64)
+    W.fill_diagonal_(0.0)
+    return W.mul_(W - 1.0).mul_(0.5)
 
 
 def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
                     device, sec: dict) -> PeelSpec:
     """Dense-engine tip spec: masked-product batch re-counts (or §5.1
     adaptive incremental pairwise updates) as the CD step, the static
-    pairwise-butterfly cascade as the FD rule."""
+    pairwise-butterfly cascade as the FD rule (every partition in one
+    ``fd_tip_dense`` launch, :func:`_tip_fd_dense`).  Supports are int64
+    (the ``vertex_count`` kernel's counts on the card), the pair matrix
+    float64 and the cascades' sums float64 (CD) or int64 (FD): exact
+    while ⋈init stays below 2⁵³."""
     n = gg.n_u
     _dense_guard(gg.n_u, gg.n_v)
     with _span("spec.upload", sec):
-        A = _t(gg.adjacency(), device)
+        A = _adjacency(gg, device)
     with _span("spec.supports", sec):
         # the paper's proxy, kept f32 as the JAX package keeps it: range
         # selection sums these weights in f32
@@ -319,7 +328,7 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
 
         support = counting.vertex_butterflies(A)
         counting.assert_exact(support)
-        sup0 = _host_rint(support)
+        sup0 = _host(support)
 
         # counting-work bound ∧cnt (alg.1 complexity) for the adaptive
         # rule
@@ -327,9 +336,13 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
         cnt_bound = float(
             np.minimum(du[gg.edges[:, 0]], dv[gg.edges[:, 1]]).sum())
 
+    with _span("spec.pairs", sec):
         # static pairwise butterfly matrix for the incremental path
         pair_bf_full = (_pair_butterflies(A) if batch_recount is not True
                         else None)
+        if pair_bf_full is not None and pair_bf_full.is_cuda:
+            # the span times the build on the card, not its launches
+            torch.cuda.synchronize(pair_bf_full.device)
 
     state = dict(alive=torch.ones((n,), dtype=torch.bool, device=device),
                  support=support)
@@ -349,14 +362,32 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
             state["support"] = state["support"] - _tip_fd_delta(
                 pair_bf_full, _t(active, device))
             stats.updates += int(active.sum()) * int(state["alive"].sum())
-        return _host_rint(state["support"])
+        return _host(state["support"])
+
+    # the FD phase peels every partition in one fd_tip_dense launch, at
+    # its first partition; part and sup_init are fixed for the phase
+    fd_out: dict = {}
 
     def fd_partition(i, part, sup_init, theta, fd_driver):
-        rows = np.where(part == i)[0]
-        if rows.size == 0:
+        if not (part == i).any():
             return 0, 0, 0
-        return _tip_fd_peel(A, rows, sup_init[rows], theta, int(i),
-                            sec), 0, 0
+        key = (part.tobytes(), np.asarray(sup_init).tobytes())
+        if fd_out.get("key") != key:
+            pair = (pair_bf_full if pair_bf_full is not None
+                    else _pair_butterflies(A))
+            fd_out.clear()
+            fd_out.update(key=key, **_tip_fd_dense(pair, part, sup_init,
+                                                   sec))
+        order, off = fd_out["order"], fd_out["off"]
+        lo, hi = int(off[i]), int(off[i + 1])
+        theta[order[lo:hi]] = fd_out["theta"][lo:hi]
+        rounds = int(fd_out["rounds"][i])
+        on_round, finish = _host_recorder(int(i))
+        if on_round is not None:
+            for k, died, frontier in _fd_host(fd_out["rec"][lo:lo + rounds]):
+                on_round(k=int(k), died=int(died), frontier=int(frontier))
+            finish()
+        return rounds, 0, 0
 
     return PeelSpec(
         kind="tip", n=n, sup0=sup0,
@@ -368,38 +399,43 @@ def _tip_spec_dense(gg: BipartiteGraph, batch_recount, stats: PeelStats,
     )
 
 
-def _tip_fd_peel(A: torch.Tensor, rows: np.ndarray, sup0: np.ndarray,
-                 theta: np.ndarray, part_i: int = 0,
-                 sec: Optional[dict] = None) -> int:
-    """Sequential (level-synchronous) bottom-up peel of one partition.
+def _tip_fd_dense(pair: torch.Tensor, part: np.ndarray,
+                  sup_init: np.ndarray, sec: Optional[dict] = None) -> dict:
+    """The dense tip FD phase: each partition's sequential
+    (level-synchronous) bottom-up peel, all partitions in one
+    ``fd_tip_dense`` launch over the static pair matrix ``pair`` and one
+    host read of θ and the round counts.
 
     Exact because a butterfly has exactly two U-endpoints and V is never
-    peeled: pairwise counts within the partition are static."""
-    dev = A.device
+    peeled: pairwise counts within the partition are static.  Returns
+    the vertices by partition (``order``, ascending within each), the
+    partition offsets ``off``, and per vertex of ``order`` its ``theta``,
+    per partition its ``rounds``, and the device records ``rec`` of
+    every round's (k, died, frontier)."""
+    dev = pair.device
     with _span("fd.pack", sec):
-        pair_bf = _pair_butterflies(A[_t(rows, dev)])
-    obs.count("fd.host_syncs")           # the pair matrix's W, read back
-    alive = np.ones(rows.size, dtype=bool)
-    support = sup0.astype(np.float64).copy()
-    on_round, finish = _host_recorder(part_i)
-    k = 0
-    rounds = 0
-    while alive.any():
-        k = max(k, int(support[alive].min()))
-        while True:
-            S = alive & (support <= k)
-            if not S.any():
-                break
-            theta[rows[S]] = k
-            alive &= ~S
-            support -= _tip_fd_delta(pair_bf, _t(S, dev)).cpu().numpy()
-            obs.count("fd.host_syncs")
-            rounds += 1
-            if on_round is not None:
-                on_round(k=k, died=int(S.sum()), frontier=int(alive.sum()))
-    if finish is not None:
-        finish()
-    return rounds
+        P = int(part.max()) + 1
+        order = np.argsort(part, kind="stable")
+        off = np.zeros(P + 1, dtype=np.int64)
+        np.cumsum(np.bincount(part, minlength=P), out=off[1:])
+        args = (_t(order.astype(np.int32), dev), _t(off, dev),
+                _t(np.asarray(sup_init, dtype=np.int64)[order], dev))
+        if pair.is_cuda:
+            # the span times the pack on the card, as ``spec.pairs`` does
+            torch.cuda.synchronize(dev)
+    theta, rounds, rec = kops.fd_tip_dense(pair, *args)
+    out = _fd_host(torch.cat([theta, rounds.to(torch.int64)]))
+    return dict(order=order, off=off, theta=out[:order.size],
+                rounds=out[order.size:], rec=rec)
+
+
+def _adjacency(gg: BipartiteGraph, device) -> torch.Tensor:
+    """``gg.adjacency()`` built on ``device`` from the edge list (8
+    bytes an edge up, not 4 a matrix entry)."""
+    A = torch.zeros((gg.n_u, gg.n_v), dtype=torch.float32, device=device)
+    e = _t(gg.edges, device).to(torch.int64)
+    A[e[:, 0], e[:, 1]] = 1.0
+    return A
 
 
 def _tip_spec_csr(gg, stats, use_pallas, fused, sup0, wed, device,

@@ -4,8 +4,10 @@
 adjacency, W = A·Aᵀ never stored.  ``vertex_count_tile``: the same raw
 sum for one row strip against all of A, with no diagonal mask.  Both
 take a 0/1 adjacency, as the JAX kernels do, and compute it exactly in
-int8 on the tensor cores; they take it as f32 or as ``pack_s8``'s int8
-matrix, so that a caller with many strips packs A once.  ``pack_s8``
+int8 on the tensor cores, summed in int64 and returned in int64 (the
+JAX kernels round to f32, exact only below 2²⁴); they take it as f32 or
+as ``pack_s8``'s int8 matrix, so that a caller with many strips packs A
+once.  ``pack_s8``
 raises ``ValueError`` on any value other than 0 and 1.  ``matmul``: an
 f32 product (``a @ b`` or ``a @ bᵀ``) by 3xTF32 on the tensor cores, f32
 accumulation: exact where the operands are integers below 2²² and every
@@ -34,7 +36,7 @@ def _lib():
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.pack_s8_launch.restype = ctypes.c_int
     lib.vertex_count_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.vertex_count_launch.restype = ctypes.c_int
     lib.matmul_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -89,12 +91,11 @@ def _count(name, A_rows, A, triangular):
     if kp % 16 or A_rows.data_ptr() % 16 or A.data_ptr() % 16:
         raise ValueError(f"{name}: int8 operands need 16-byte aligned rows "
                          f"of a multiple of 16 values (pack_s8 makes them)")
-    acc = torch.empty((rows,), dtype=torch.int64, device=A.device)
-    out = torch.empty((rows,), dtype=torch.float32, device=A.device)
+    out = torch.empty((rows,), dtype=torch.int64, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     err = _lib().vertex_count_launch(
-        A_rows.data_ptr(), A.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        rows, n, kp, int(triangular), stream)
+        A_rows.data_ptr(), A.data_ptr(), out.data_ptr(), rows, n, kp,
+        int(triangular), stream)
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out
@@ -102,7 +103,7 @@ def _count(name, A_rows, A, triangular):
 
 def vertex_count(A):
     """``A``: (n, k) f32 0/1 adjacency, or its ``pack_s8``.  Returns the
-    f32 per-row butterflies (n,), exact while each stays below 2²⁴."""
+    int64 per-row butterflies (n,), exact."""
     A = _packed(A)
     return _count("vertex_count", A, A, triangular=True)
 
@@ -110,8 +111,8 @@ def vertex_count(A):
 def vertex_count_tile(A_rows, A):
     """``A_rows``: (rows, k) f32 0/1 row strip of ``A`` (n, k), or both
     as ``pack_s8`` int8 (a strip as a row slice of the packed A).
-    Returns the f32 raw sums Σ_j C(W[r, j], 2), W = A_rows·Aᵀ, self pair
-    included, exact while each stays below 2²⁴."""
+    Returns the int64 raw sums Σ_j C(W[r, j], 2), W = A_rows·Aᵀ, self
+    pair included, exact."""
     if A_rows.dtype != A.dtype:
         raise TypeError(f"vertex_count_tile: A_rows is {A_rows.dtype}, A is "
                         f"{A.dtype}; pass both f32 or both packed")

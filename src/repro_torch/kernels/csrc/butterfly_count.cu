@@ -2,7 +2,7 @@
 // kernels and the pass that packs their operands.
 //
 // 1. vertex_count — per-row butterflies of a 0/1 adjacency A [n, k]:
-//    out[r] = sum_{j != r} C(W[r, j], 2) with W = A * A^T.
+//    out[r] = sum_{j != r} C(W[r, j], 2) with W = A * A^T, in int64.
 //    Replaces the TPU kernel src/repro/kernels/butterfly_count.py:
 //    vertex_count_pallas (_vertex_count_kernel).
 // 2. vertex_count_tile — the same raw sum for one row strip A_rows
@@ -52,7 +52,7 @@
 // counted.  vertex_count_tile has no symmetry to use: it runs every tile
 // of A_rows * A^T, row sums only, in groups of 8 tile rows.  Integer
 // addition is order-free, so any block order gives the same sum, and the
-// int64 total becomes f32 only at the interface.  TMA zero-fills the
+// int64 total is the interface: no count is rounded.  TMA zero-fills the
 // ragged edges and the padded columns are zero, so no input is padded
 // beyond its row pitch: a zero row or column of W adds C(0, 2) = 0.
 //
@@ -306,12 +306,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-__global__ void count_to_f32_kernel(const long long* __restrict__ acc64, float* __restrict__ out,
-                                    int rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < rows) out[r] = (float)acc64[r];  // round to nearest, as an f32 sum would
-}
-
 template <bool kTri>
 cudaError_t launch_count(const CUtensorMap& a_map, const CUtensorMap& b_map,
                          unsigned long long* acc64, int rows, int n, int Kp, cudaStream_t s) {
@@ -536,13 +530,12 @@ extern "C" int pack_s8_launch(const void* x, void* out, void* odd, int rows, int
   return (int)cudaGetLastError();
 }
 
-// out[r] (f32) = sum_j C(W[r, j], 2), W = A_rows * A^T, for r < rows,
+// acc64[r] (int64) = sum_j C(W[r, j], 2), W = A_rows * A^T, for r < rows,
 // from the packed int8 A_rows [rows, Kp] and A [n, Kp] (Kp a multiple of
 // 16, both 16-byte aligned).  With `triangular` (A_rows == A, rows == n)
 // the diagonal j == r is left out and only the pairs j > r are computed.
-// `acc64` is int64 scratch of `rows` values.
-extern "C" int vertex_count_launch(const void* a_rows, const void* a, void* acc64, void* out,
-                                   int rows, int n, int Kp, int triangular, void* stream) {
+extern "C" int vertex_count_launch(const void* a_rows, const void* a, void* acc64, int rows,
+                                   int n, int Kp, int triangular, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (rows <= 0) return (int)cudaGetLastError();
   cudaError_t err = cudaMemsetAsync(acc64, 0, sizeof(long long) * (size_t)rows, s);
@@ -563,8 +556,6 @@ extern "C" int vertex_count_launch(const void* a_rows, const void* a, void* acc6
                      : vc::launch_count<false>(maps[0], maps[1], acc, rows, n, Kp, s);
     if (err != cudaSuccess) return (int)err;
   }
-  vc::count_to_f32_kernel<<<(rows + 255) / 256, 256, 0, s>>>((const long long*)acc64,
-                                                              (float*)out, rows);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,9 @@ itself (a head dim that is not an instance is padded inside its
 wrapper).  ``beindex_wedges`` pads nothing either: it enumerates every
 wedge slot of the BE-Index build's CSR for ``core.beindex.build_beindex``
 (which has no JAX kernel: the JAX package builds its index in a host
-loop).
+loop), and ``fd_tip_dense`` pads nothing: it peels every partition of
+the dense tip engine's FD phase in one launch (the JAX package peels
+them from a host loop).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from .beindex import beindex_wedges
 from .bloom_update import bloom_update as _bloom_update
 from .butterfly_count import matmul, pack_s8, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
+from .fd_tip_dense import fd_tip_dense
 from .flash_attention import flash_attention as _flash_attention
 from .support_update import support_update as _support_update
 from .wedge_count import wedge_count, wedge_count_tile
@@ -42,6 +45,7 @@ __all__ = [
     "edge_wedge_matrix",
     "fd_round_tip",
     "fd_round_wing",
+    "fd_tip_dense",
     "flash_attention",
     "launch_counts",
     "pack_blooms",
@@ -57,7 +61,8 @@ __all__ = [
 
 KERNELS = ("fd_round_wing", "fd_round_tip", "support_update", "wedge_count",
            "wedge_count_tile", "bloom_update", "vertex_count",
-           "vertex_count_tile", "matmul", "flash_attention", "beindex_wedges")
+           "vertex_count_tile", "matmul", "flash_attention", "beindex_wedges",
+           "fd_tip_dense")
 
 
 def launch_counts() -> dict:
@@ -146,8 +151,8 @@ def support_update(pe1, pe2, alive, W, bp: int = 128, bk: int = 128):
 
 def vertex_butterflies(A: torch.Tensor, bm: int = 128,
                        bn: int = 128) -> torch.Tensor:
-    """Per-row butterfly counts (f32) of a 0/1 adjacency through the
-    fused ``vertex_count`` kernel; rows padded to ``bm``/``bn`` and
+    """Per-row butterfly counts (int64, exact) of a 0/1 adjacency through
+    the fused ``vertex_count`` kernel; rows padded to ``bm``/``bn`` and
     columns to 128 multiples, as the JAX wrapper pads.  Raises
     ``ValueError`` on a value other than 0 and 1."""
     n = A.shape[0]
@@ -166,20 +171,18 @@ def vertex_butterflies_tiled(A: torch.Tensor, tile_rows: int = 1024,
     ``ValueError`` on a value other than 0 and 1); a host loop then
     hands each ``tile_rows``-row strip, a row slice of the packed matrix,
     to the ``vertex_count_tile`` kernel, which skips the diagonal mask;
-    the exact self-pair term C(d_r, 2) is subtracted here (in int64,
-    after rounding the f32 strip sums).  Returns int64 counts on ``A``'s
-    device."""
+    the exact self-pair term C(d_r, 2) is subtracted here from the int64
+    strip sums.  Returns int64 counts on ``A``'s device."""
     n = A.shape[0]
     A = A.to(torch.float32)
     deg = A.sum(dim=1).to(torch.int64)
     tile_rows = max(-(-tile_rows // bm) * bm, bm)
     Ap = pack_s8(_pad_to(_pad_to(A, bn, 0), 128, 1).contiguous())
-    out = torch.zeros((n,), dtype=torch.float64, device=A.device)
+    out = torch.empty((n,), dtype=torch.int64, device=A.device)
     for r0 in range(0, n, tile_rows):
         r1 = min(r0 + tile_rows, n)
-        out[r0:r1] = vertex_count_tile(Ap[r0:r1], Ap).to(torch.float64)
-    self_pair = deg * (deg - 1) // 2
-    return torch.round(out).to(torch.int64) - self_pair
+        out[r0:r1] = vertex_count_tile(Ap[r0:r1], Ap)
+    return out - deg * (deg - 1) // 2
 
 
 def edge_wedge_matrix(A: torch.Tensor, bm: int = 128, bn: int = 128,

@@ -19,9 +19,11 @@ __all__ = [
     "support_update_ref",
     "fd_round_wing_ref",
     "fd_round_tip_ref",
+    "fd_tip_dense_ref",
     "matmul_f32",
     "matmul_ref",
     "pack_s8_ref",
+    "choose2_row_sums",
     "vertex_butterflies_ref",
     "vertex_count_tile_ref",
     "edge_wedge_matrix_ref",
@@ -141,6 +143,46 @@ def fd_round_tip_ref(sup, alive, theta, k, rounds, pa, pb, bf):
             rounds + live.to(torch.int32)[:, None])
 
 
+def fd_tip_dense_ref(pair, rows, off, sup):
+    """Every dense tip partition's bottom-up peel (the JAX package's
+    host loop ``core/peel.py::_tip_fd_peel``, all partitions): partition
+    p is ``rows[off[p]:off[p + 1]]`` with FD initial supports ``sup``
+    there; each round sets θ = k on the alive with support <= k (k the
+    running max of the alive's least support), kills them and takes
+    their pair butterflies (``pair``, exact integers) off the survivors'
+    supports, in int64.  Returns (theta (N,) int64, rounds (P,) int32,
+    rec (N, 3) int64 with round r of partition p's (k, died, frontier)
+    at ``off[p] + r``, zero past the last round)."""
+    N, P = rows.shape[0], off.shape[0] - 1
+    dev = rows.device
+    theta = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    rounds = torch.zeros((P,), dtype=torch.int32, device=dev)
+    rec = torch.zeros((N, 3), dtype=torch.int64, device=dev)
+    for p in range(P):
+        lo, hi = int(off[p]), int(off[p + 1])
+        g = rows[lo:hi].to(torch.int64)
+        pb = pair[g][:, g].to(torch.int64)
+        s = sup[lo:hi].to(torch.int64).clone()
+        alive = torch.ones((hi - lo,), dtype=torch.bool, device=dev)
+        th = theta[lo:hi]
+        k = r = 0
+        while bool(alive.any()):
+            k = max(k, int(s[alive].min()))
+            while True:
+                S = alive & (s <= k)
+                died = int(S.sum())
+                if died == 0:
+                    break
+                th[S] = k
+                alive &= ~S
+                s -= pb[:, S].sum(dim=1)
+                rec[lo + r] = torch.tensor([k, died, int(alive.sum())],
+                                           device=dev)
+                r += 1
+        rounds[p] = r
+    return theta, rounds, rec
+
+
 @contextlib.contextmanager
 def _full_f32():
     """Full float32 products for the block: TF32 keeps ~10 mantissa bits
@@ -210,19 +252,28 @@ def pack_s8_ref(A: torch.Tensor):
     return out, ~((A == 0) | (A == 1)).all()
 
 
+def choose2_row_sums(W: torch.Tensor) -> torch.Tensor:
+    """int64 Σ_j C(W[r, j], 2) of an f32 matrix of exact integer counts:
+    each W entry is a common-neighbour count, at most the adjacency's
+    column count (< 2²⁴, so exact in f32); C(W, 2) and the sums are
+    taken in int64."""
+    w = W.to(torch.int64)
+    return torch.sum(w * (w - 1) // 2, dim=1)
+
+
 def vertex_butterflies_ref(A: torch.Tensor) -> torch.Tensor:
-    """⋈_u per row of A: Σ_{u'≠u} C(W[u,u'], 2) with W = A Aᵀ."""
+    """⋈_u per row of A, int64: Σ_{u'≠u} C(W[u,u'], 2) with W = A Aᵀ."""
     W = matmul_f32(A, A.T)
     W.fill_diagonal_(0.0)
-    return torch.sum(W * (W - 1.0) * 0.5, dim=1)
+    return choose2_row_sums(W)
 
 
 def vertex_count_tile_ref(A_rows: torch.Tensor,
                           A: torch.Tensor) -> torch.Tensor:
-    """One row strip's raw sums Σ_j C(W[r, j], 2) with W = A_rows Aᵀ and
-    no diagonal mask (the caller subtracts the self pair C(d_r, 2))."""
-    W = matmul_f32(A_rows, A.T)
-    return torch.sum(W * (W - 1.0) * 0.5, dim=1)
+    """One row strip's int64 raw sums Σ_j C(W[r, j], 2) with W = A_rows Aᵀ
+    and no diagonal mask (the caller subtracts the self pair
+    C(d_r, 2))."""
+    return choose2_row_sums(matmul_f32(A_rows, A.T))
 
 
 def edge_wedge_matrix_ref(A: torch.Tensor) -> torch.Tensor:

@@ -44,9 +44,12 @@ def _adjacency(n_u, n_v, m, seed):
     return g, g.adjacency()
 
 
-def _eq(got: torch.Tensor, want) -> None:
+def _eq(got: torch.Tensor, want, dtype=torch.float32) -> None:
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert got.dtype == torch.float32
+    assert got.dtype == dtype
+
+
+I64 = torch.int64   # the per-vertex counts: exact int64 in the port
 
 
 @pytest.mark.parametrize("n_u,n_v,m,seed", SHAPES)
@@ -54,11 +57,11 @@ def test_counting_functions_equal_reference(n_u, n_v, m, seed):
     g, A = _adjacency(n_u, n_v, m, seed)
     At, Aj = torch.from_numpy(A), jnp.asarray(A)
     _eq(tcount.wedge_counts(At), jcount.wedge_counts(Aj))
-    _eq(tcount.vertex_butterflies(At), jcount.vertex_butterflies(Aj))
+    _eq(tcount.vertex_butterflies(At), jcount.vertex_butterflies(Aj), I64)
     _eq(tcount.vertex_butterflies_blocked(At, block=64),
-        jcount.vertex_butterflies_blocked(Aj, block=64))
+        jcount.vertex_butterflies_blocked(Aj, block=64), I64)
     _eq(tcount.vertex_wedge_workload(At), jcount.vertex_wedge_workload(Aj))
-    _eq(tcount.total_butterflies(At), jcount.total_butterflies(Aj))
+    _eq(tcount.total_butterflies(At), jcount.total_butterflies(Aj), I64)
     edges = g.edges.astype(np.int32)
     _eq(tcount.edge_butterflies(At, torch.from_numpy(edges).long()),
         jcount.edge_butterflies(Aj, jnp.asarray(edges)))
@@ -69,7 +72,7 @@ def test_counting_functions_equal_reference(n_u, n_v, m, seed):
                                     jnp.asarray(alive_e)))
     alive_u = np.random.default_rng(seed + 1).random(n_u) < 0.6
     _eq(tcount.recount_vertex((n_u, n_v), At, torch.from_numpy(alive_u)),
-        jcount.recount_vertex((n_u, n_v), Aj, jnp.asarray(alive_u)))
+        jcount.recount_vertex((n_u, n_v), Aj, jnp.asarray(alive_u)), I64)
     # and the pure-python oracle
     bu, _ = core_ref.vertex_butterflies_ref(g)
     np.testing.assert_array_equal(
@@ -119,8 +122,8 @@ def test_vertex_and_edge_counts_property(n_u, n_v, density, seed):
     A = (np.random.default_rng(seed).random((n_u, n_v)) < density).astype(
         np.float32)
     At, Aj = torch.from_numpy(A), jnp.asarray(A)
-    _eq(tcount.vertex_butterflies(At), jcount.vertex_butterflies(Aj))
-    _eq(ops.vertex_butterflies(At), jref.vertex_butterflies_ref(Aj))
+    _eq(tcount.vertex_butterflies(At), jcount.vertex_butterflies(Aj), I64)
+    _eq(ops.vertex_butterflies(At), jref.vertex_butterflies_ref(Aj), I64)
     _eq(ops.edge_wedge_matrix(At), jref.edge_wedge_matrix_ref(Aj))
 
 
@@ -135,9 +138,9 @@ def test_vertex_butterflies_wrapper_equals_reference(n_u, n_v, m, seed, bm,
     At = torch.from_numpy(A)
     got = ops.vertex_butterflies(At, bm=bm, bn=bn)
     _eq(got, jops.vertex_butterflies(jnp.asarray(A), bm=bm, bn=bn,
-                                     interpret=True))
+                                     interpret=True), I64)
     _eq(ref.vertex_butterflies_ref(At), jref.vertex_butterflies_ref(
-        jnp.asarray(A)))
+        jnp.asarray(A)), I64)
     assert torch.equal(got, tcount.vertex_butterflies(At))
 
 
@@ -160,8 +163,9 @@ def test_vertex_count_tile_plain_version_keeps_the_self_pair():
     _, A = _adjacency(40, 30, 200, 4)
     At = torch.from_numpy(A)
     raw = ref.vertex_count_tile_ref(At[5:17], At)
-    deg = At[5:17].sum(1)
-    assert torch.equal(raw - deg * (deg - 1) * 0.5,
+    assert raw.dtype == I64
+    deg = At[5:17].sum(1).to(I64)
+    assert torch.equal(raw - deg * (deg - 1) // 2,
                        ref.vertex_butterflies_ref(At)[5:17])
 
 

@@ -12,6 +12,7 @@ and ``torch_engines.json``.  Run on a machine with a card::
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -286,8 +287,97 @@ def test_vertex_count_kernels_equal_plain(card, n_u, n_v, m):
                          lambda: ops.vertex_butterflies_tiled(A, 128))
     assert n == -(-n_u // 128)
     assert _build.LAUNCHES["pack_s8"] - packs == 1  # A is packed once
-    assert torch.equal(tiled, torch.round(
-        counting.vertex_butterflies(A).double()).to(torch.int64))
+    assert torch.equal(tiled, counting.vertex_butterflies(A))
+
+
+def _portbench_graph(name):
+    """(n_u, n_v, edges) of a benchmark configuration for the run seed
+    2**31 + 11 (``portbench/graphgen.py``, NumPy only)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import graphgen
+
+    with open(os.path.join(root, "portbench", "configs",
+                           f"{name}.json")) as f:
+        return graphgen.make_graph(json.load(f), 2**31 + 11)
+
+
+def test_vertex_count_is_int64_exact_past_2_24(card):
+    """The kernel's int64 counts equal NumPy's where float32 cannot hold
+    them: the CPU tests' dense graph (every count past 2**24, many odd)
+    and the benchmark's bcl-6040 graph (17 users past 2**24)."""
+    from test_torch_dense_exact import dense_graph, numpy_counts
+
+    A_np, _ = dense_graph()
+    n_u, n_v, edges = _portbench_graph("bcl-6040")
+    A6 = np.zeros((n_u, n_v), dtype=np.float32)
+    A6[edges[:, 0], edges[:, 1]] = 1.0
+    # the bcl-6040 count in float64 BLAS (W's entries are exact there),
+    # then C(W, 2) and the sums in int64
+    W6 = A6.astype(np.float64) @ A6.T.astype(np.float64)
+    np.fill_diagonal(W6, 0)
+    W6 = W6.astype(np.int64)
+    want6 = (W6 * (W6 - 1) // 2).sum(axis=1)
+    del W6
+    assert int((want6 >= 2 ** 24).sum()) == 17
+    for A, want in ((A_np.astype(np.float32), numpy_counts(A_np)),
+                    (A6, want6)):
+        At = torch.from_numpy(A).to(card)
+        got, n = _launched("vertex_count", lambda: ops.vertex_butterflies(At))
+        assert n == 1 and got.dtype == torch.int64
+        assert np.array_equal(got.cpu().numpy(), want)
+        assert np.array_equal(
+            ops.vertex_butterflies_tiled(At, 1024).cpu().numpy(), want)
+
+
+def test_dense_tip_on_the_card_is_exact_past_2_24(card):
+    """The dense tip engine on the card: ⋈init from the kernel, the pair
+    cascades in float64, θ equal to the plain reference's."""
+    from test_torch_dense_exact import (N_U, N_V, dense_graph,
+                                        fd_initial_supports, pair_matrix)
+
+    from portbench.reference import tip as ref_tip
+
+    A, g = dense_graph()
+    edges = np.argwhere(A).astype(np.int64)
+    want = ref_tip.tip_numbers(N_U, N_V, edges)
+    C = pair_matrix(A)
+    for batch_recount in ("adaptive", True, False):
+        res, n = _launched("vertex_count", lambda: peel.tip_decomposition(
+            g, side="u", P=16, engine="dense", batch_recount=batch_recount,
+            device=card))
+        assert n == 1 + res.stats.recounts
+        assert np.array_equal(np.asarray(res.support_init, np.int64),
+                              fd_initial_supports(C, res.part))
+        assert np.array_equal(np.asarray(res.theta, np.int64), want)
+
+
+@pytest.mark.parametrize("P,empty", [(1, False), (3, False), (16, False),
+                                     (16, True)])
+def test_fd_tip_dense_kernel_equals_plain(card, P, empty):
+    """The dense tip FD kernel against its plain version on supports past
+    2**24: θ, each partition's rounds and every round's record, with one
+    launch for all partitions (``empty``: partition 1 has no vertex)."""
+    from test_torch_dense_exact import (N_U, dense_graph,
+                                        fd_initial_supports, pair_matrix)
+
+    A, _ = dense_graph()
+    part = np.random.default_rng(P).integers(0, P, N_U)
+    if empty:
+        part[part == 1] = 0
+    sup = fd_initial_supports(pair_matrix(A), part)
+    order = np.argsort(part, kind="stable")
+    off = np.concatenate([[0], np.cumsum(np.bincount(part, minlength=P))])
+    args = (torch.from_numpy(order.astype(np.int32)), torch.from_numpy(off),
+            torch.from_numpy(sup[order]))
+    pair = peel._pair_butterflies(torch.from_numpy(A.astype(np.float32)))
+    want = ops.fd_tip_dense(pair, *args)
+    got, n = _launched("fd_tip_dense", lambda: ops.fd_tip_dense(
+        pair.to(card), *(t.to(card) for t in args)))
+    assert n == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("bad", [2.0, 0.5, -1.0, float("nan")])

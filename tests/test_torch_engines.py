@@ -379,7 +379,7 @@ def test_chip_smoke_engine_phase_rehearsed_on_cpu(monkeypatch):
     launches = {}
     rows, seconds = smoke.phase_engines(engines, fullsize, "cpu", launches)
     assert set(rows) == {"vertex_count", "vertex_count_tile", "matmul",
-                         "bloom_update", "beindex_wedges"}
+                         "bloom_update", "beindex_wedges", "fd_tip_dense"}
     assert all(r["max_abs_err"] == 0.0 for r in rows.values())
     assert launches and not any(launches.values())
     assert {"dense-16k --kind tip --engine dense", "wing-60k --kind wing",
