@@ -322,6 +322,10 @@ KERNEL_INFO = {
     # a host loop
     "fd_tip_dense": ("src/repro_torch/kernels/csrc/fd_tip_dense.cu",
                      "src/repro/core/peel.py:702"),
+    # no JAX kernel: the JAX package peels each beindex partition from a
+    # host loop
+    "fd_wing_beindex": ("src/repro_torch/kernels/csrc/fd_wing_beindex.cu",
+                        "src/repro/core/peel.py:1546"),
 }
 STAT_FIELDS = ("rho_cd", "rho_fd_total", "rho_fd_max", "updates",
                "recounts", "p_effective")
@@ -972,8 +976,9 @@ def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
     The kernel launches counted on the card: the dense tip counts its
     ⋈init and each §5.1 batch re-count with one ``vertex_count`` and
     peels its FD phase with one ``fd_tip_dense``, the beindex engine
-    builds its index with one ``beindex_wedges``, and nothing else
-    launches a kernel.  Returns the run's PeelResult."""
+    builds its index with one ``beindex_wedges`` and peels its FD phase
+    with one ``fd_wing_beindex``, and nothing else launches a kernel.
+    Returns the run's PeelResult."""
     import torch
 
     from repro_torch.kernels import ops
@@ -990,6 +995,7 @@ def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
             want["fd_tip_dense"] = 1
         if engine == "beindex":
             want["beindex_wedges"] = 1
+            want["fd_wing_beindex"] = 1
     expect(label, "kernel launches", counts, want)
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
@@ -1169,13 +1175,16 @@ def phase_engines(engines, fullsize, dev, launches):
     # ---- wing-60k: the beindex (default) and dense wing engines
     wf, we = fullsize["wing-60k"], engines["wing-60k"]
     g = powerlaw_bipartite(**wf["graph"])
+    res = {}
     for argv, engine in ((["--kind", "wing"], "beindex"),
                          (["--kind", "wing", "--engine", "dense"], "dense")):
-        engines_cli(f"wing-60k {' '.join(argv)}", g,
-                    [*argv, "--parts", str(wf["P"])], engine,
-                    (wf, we.get(engine)), dev, launches, seconds)
+        res[engine] = engines_cli(f"wing-60k {' '.join(argv)}", g,
+                                  [*argv, "--parts", str(wf["P"])], engine,
+                                  (wf, we.get(engine)), dev, launches,
+                                  seconds)
     rows["bloom_update"] = check_bloom_rounds(we, g, dev, launches, seconds)
     rows["beindex_wedges"] = check_beindex_wedges(g, dev)
+    rows["fd_wing_beindex"] = check_fd_wing_beindex(g, res["beindex"], dev)
     return rows, seconds
 
 
@@ -1198,6 +1207,42 @@ def check_beindex_wedges(g, dev):
     row = check_rows_kernel("beindex_wedges", ops.beindex_wedges,
                             ref.beindex_wedges_ref, inputs, nbytes)
     row.update(bound_by="bytes", slots=n_slots)
+    return row
+
+
+def check_fd_wing_beindex(g, res, dev):
+    """``ops.fd_wing_beindex`` on the FD phase of the beindex wing run
+    ``res`` (its partition and FD initial supports, the pack of ``g``'s
+    BE-Index on ``dev``) against its plain version, entry for entry, then
+    both timed.  θ equals the run's, and the rounds its ρ_fd.  The bound
+    is the bytes it has to move: 16 a link (the pair members and
+    segments, the edge-major entries, the pair flags) and 8 an update (a
+    support's atomic and its read)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import peel
+    from repro_torch.core.beindex import build_beindex
+    from repro_torch.kernels import ops, ref
+
+    be = build_beindex(g, dev)
+    le, lt, lb = peel._wing_links(be, dev)
+    inputs = peel._wing_fd_pack(le, lt, lb, be.nb, np.asarray(res.part),
+                                np.asarray(res.support_init))
+    theta, rounds, updates, _ = ops.fd_wing_beindex(*inputs)
+    require_equal("fd_wing_beindex", (theta.cpu().to(torch.int64),),
+                  (torch.from_numpy(np.asarray(res.theta, np.int64)),),
+                  "θ as the beindex wing run's")
+    expect("fd_wing_beindex", "(rho_fd_total, rho_fd_max)",
+           (int(rounds.sum()), int(rounds.max())),
+           (res.stats.rho_fd_total, res.stats.rho_fd_max))
+    nbytes = 16 * be.n_links + 8 * int(updates.sum())
+    row = check_rows_kernel("fd_wing_beindex", ops.fd_wing_beindex,
+                            ref.fd_wing_beindex_ref, inputs, nbytes, reps=3)
+    row.update(bound_by="bytes", partitions=int(rounds.numel()),
+               links=be.n_links, rounds=int(rounds.sum()),
+               updates=int(updates.sum()))
+    del inputs, le, lt, lb
     return row
 
 

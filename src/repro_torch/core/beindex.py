@@ -9,9 +9,12 @@ twin and 1 with every other bloom edge (property 1).
 Construction happens on the device that the caller names: the
 ``beindex_wedges`` kernel enumerates the filtered wedges of a CSR, and
 stable sorts group them into blooms; the four flat arrays come back to
-the host once, as numpy.  Peeling consumes them on the device through
-int32 ``index_add_`` (``core.peel._wing_update``), the replacement for
-the paper's atomics.  The port of the JAX package's ``core/beindex.py``
+the host once, as numpy.  Peeling consumes them on the device: CD rounds
+through int32 ``index_add_`` (``core.peel._wing_update``), the
+replacement for the paper's atomics, and the whole FD phase through one
+``fd_wing_beindex`` launch, whose int32 atomics are the paper's (no
+``index_add_``; ``core.peel._wing_fd_beindex``).  The port of the JAX
+package's ``core/beindex.py``
 (a host loop): the same enumeration order and bloom numbering, so every
 array is equal to the reference's.
 
@@ -20,7 +23,8 @@ Flat layout (all int32):
     link_edge[L]      link -> edge id          (grouped by bloom)
     link_twin[L]      link -> twin edge id
     link_bloom[L]     link -> bloom id
-Each twin *pair* contributes two links (e, t) and (t, e).
+Each twin *pair* contributes two links (e, t) and (t, e), adjacent:
+pair j is links 2j and 2j + 1 (the FD pack reads it so).
 """
 from __future__ import annotations
 

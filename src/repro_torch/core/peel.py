@@ -13,8 +13,9 @@ Three engines, as in the JAX package, all giving the same θ:
   updated incrementally from the static pair-butterfly matrix.  O(n²)
   memory, guarded by ``REPRO_DENSE_MAX_ELEMS``.  The default for tip.
 * ``engine="beindex"`` — paper-faithful BE-Index twin/bloom bookkeeping
-  (alg.4/alg.6), int32 ``index_add_`` in place of the paper's atomics.
-  The default for wing.
+  (alg.4/alg.6): CD rounds through int32 ``index_add_`` in place of the
+  paper's atomics, the FD phase one ``fd_wing_beindex`` launch (int32
+  atomics, every partition at once).  The default for wing.
 * ``engine="csr"`` — the sparse wedge list (``core.csr``) with purely
   incremental int32 updates, bit-identical to the JAX package's csr
   engine for every FD driver (``device`` in LPT order, ``vmapped`` all
@@ -25,11 +26,14 @@ Three engines, as in the JAX package, all giving the same θ:
   ``support_update``/``wedge_count`` and, for the unfused vmapped wing
   FD, ``support_update`` inside the loop.
 
-The dense and beindex engines peel their FD partitions from the host
-(one device update and one support copy per round), as the JAX
-package's do.  With the obs layer on, every FD driver also feeds the
-run's timeline: the device-side loops through their ``*_rings`` twins
-(drained by :func:`_drain_rings`), the host loops round by round.
+The dense wing engine peels its FD partitions from the host (one
+device update and one support copy per round), as the JAX package's
+engines do; the dense tip and beindex engines peel all their partitions
+in one kernel launch each (``fd_tip_dense``, ``fd_wing_beindex``) and
+read the card once.  With the obs layer on, every FD driver also feeds
+the run's timeline: the device-side loops through their ``*_rings``
+twins (drained by :func:`_drain_rings`), the host loops and the two
+one-launch phases round by round.
 Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``, where every kernel is replaced by its plain
 version.
@@ -716,7 +720,9 @@ def _wing_update(peeled_e, alive_link, k_alive, support, le, lt, lb,
 def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
                        stats: PeelStats, device, sec: dict) -> PeelSpec:
     """BE-Index wing spec: alg.4/6 widow/survivor updates as the CD
-    step, link-packed sub-indices (alg.5) as the FD rule."""
+    step, every partition's sub-index (alg.5) peeled in one
+    ``fd_wing_beindex`` launch as the FD rule (:func:`_wing_fd_beindex`;
+    the engine has no other FD driver)."""
     m = g.m
     if be is None:
         with _span("spec.beindex", sec):
@@ -741,10 +747,32 @@ def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
         stats.updates += int(nupd)
         return _host(state["support"])
 
+    # the FD phase peels every partition in one fd_wing_beindex launch, at
+    # its first partition; part and sup_init are fixed for the phase
+    fd_out: dict = {}
+
     def fd_partition(i, part, sup_init, theta, fd_driver):
-        rounds, nupd = _wing_fd_beindex(g, be, part, i, sup_init, theta,
-                                        device, sec)
-        return rounds, nupd, 0
+        key = (part.tobytes(), np.asarray(sup_init).tobytes())
+        if fd_out.get("key") != key:
+            fd_out.clear()
+            fd_out.update(key=key, **_wing_fd_beindex(le, lt, lb, be.nb, part,
+                                                      sup_init, sec))
+        rounds = int(fd_out["rounds"][i])
+        if rounds == 0:  # no pair of its own: no cascade, θ stays 0
+            return 0, 0, 0
+        mine = part == i
+        theta[mine] = fd_out["theta"][mine]
+        done = [0]
+        on_round, finish = _host_recorder(int(i), lambda: done[0])
+        if on_round is not None:
+            if "rec_host" not in fd_out:
+                fd_out["rec_host"] = _fd_host(fd_out["rec"])
+            lo = int(fd_out["off"][i])
+            for k, died, frontier, upd in fd_out["rec_host"][lo:lo + rounds]:
+                done[0] += int(upd)
+                on_round(k=int(k), died=int(died), frontier=int(frontier))
+            finish()
+        return rounds, int(fd_out["updates"][i]), 0
 
     workload, est = _wing_workload_est()
     return PeelSpec(
@@ -753,52 +781,89 @@ def _wing_spec_beindex(g: BipartiteGraph, be: Optional[BEIndex],
     )
 
 
-def _wing_fd_beindex(g: BipartiteGraph, be: BEIndex, part: np.ndarray,
-                     i: int, sup_init: np.ndarray, theta: np.ndarray,
-                     device, sec: Optional[dict] = None) -> Tuple[int, int]:
-    """FD for partition i, BE-Index engine (alg.5 semantics).
+def _wing_fd_beindex(le: torch.Tensor, lt: torch.Tensor, lb: torch.Tensor,
+                     nb: int, part: np.ndarray, sup_init: np.ndarray,
+                     sec: Optional[dict] = None) -> dict:
+    """The BE-Index wing FD phase (alg.5 semantics, alg.6's updates):
+    each partition's level-synchronous bottom-up peel over its sub-index,
+    all partitions in one ``fd_wing_beindex`` launch and one host read of
+    θ, the round counts and the update counts.
 
-    Sub-index = links whose pair touches partition i with both members in
-    partitions ≥ i; bloom numbers initialised to the count of pairs with
-    both members ≥ i (alg.5 lines 21-24)."""
+    Partition i's sub-index is the twin pairs whose lower member
+    partition is i, its bloom numbers the count of each bloom's pairs
+    with both members ≥ i (alg.5 lines 21-24); the pack groups them on
+    the links' device (:func:`_wing_fd_pack`).  Returns per edge its
+    ``theta``, per partition its ``rounds`` and ``updates``, the device
+    records ``rec`` of every round's (k, died, frontier, updates) and
+    the partitions' row offsets ``off`` into them."""
     with _span("fd.pack", sec):
-        ple = part[be.link_edge]
-        plt_ = part[be.link_twin]
-        pair_ge = (ple >= i) & (plt_ >= i)
-        # pairs that can die in FD_i
-        keep = pair_ge & (np.minimum(ple, plt_) == i)
-        if not keep.any():
-            return 0, 0
-        canon_full = be.link_edge < be.link_twin
-        # bloom number in I_i: pairs with both members ≥ i
-        k_init = np.bincount(be.link_bloom[pair_ge & canon_full],
-                             minlength=be.nb)
-        le = _t(be.link_edge[keep], device)
-        lt = _t(be.link_twin[keep], device)
-        lb = _t(be.link_bloom[keep], device)
-        nb = max(be.nb, 1)
-        m = g.m
-        mine = part == i
-        support_full = np.zeros(m, dtype=np.int64)
-        support_full[mine] = sup_init[mine]
-        st = dict(alive_link=torch.ones((int(keep.sum()),),
-                                        dtype=torch.bool, device=device),
-                  k_alive=_t(k_init.astype(np.int32), device),
-                  support=_t(support_full.astype(np.int32), device), nupd=0)
+        args = _wing_fd_pack(le, lt, lb, nb, part, sup_init)
+        if le.is_cuda:
+            # the span times the pack on the card, as ``spec.pairs`` does
+            torch.cuda.synchronize(le.device)
+    theta, rounds, updates, rec = kops.fd_wing_beindex(*args)
+    m, P = part.size, rounds.shape[0]
+    out = _fd_host(torch.cat([theta.to(torch.int64),
+                              rounds.to(torch.int64), updates]))
+    off = np.zeros(P + 1, dtype=np.int64)
+    np.cumsum(np.bincount(part, minlength=P), out=off[1:])
+    return dict(theta=out[:m], rounds=out[m:m + P], updates=out[m + P:],
+                rec=rec, off=off)
 
-    def peel(S, sup):
-        st["alive_link"], st["k_alive"], st["support"], nu = _wing_update(
-            _t(S, device), st["alive_link"], st["k_alive"], st["support"],
-            le, lt, lb, nb, m)
-        st["nupd"] += _fd_int(nu)
-        return _fd_host(st["support"])
 
-    on_round, finish = _host_recorder(i, lambda: st["nupd"])
-    rounds = _fd_cascade(mine, support_full.copy(), theta, peel,
-                         on_round=on_round)
-    if finish is not None:
-        finish()
-    return rounds, st["nupd"]
+def _wing_fd_pack(le: torch.Tensor, lt: torch.Tensor, lb: torch.Tensor,
+                  nb: int, part: np.ndarray, sup_init: np.ndarray) -> tuple:
+    """``ops.fd_wing_beindex``'s inputs, built on the links' device from
+    the BE-Index links (twin pair j is links 2j and 2j + 1), the CD
+    partition and the FD initial supports: the pairs grouped into
+    segments by (lower member partition, bloom), each segment's initial
+    alive pairs, the edge-major index of each edge's own partition's
+    pairs, and the edges grouped by partition."""
+    dev = le.device
+    i32, i64 = torch.int32, torch.int64
+    m, P = part.size, int(part.max()) + 1
+    nbk = max(nb, 1)
+    part_d = _t(part.astype(np.int32), dev)
+    a, b = le[0::2], lt[0::2]
+    pm = torch.minimum(part_d[a.to(i64)], part_d[b.to(i64)]).to(i64)
+    key, order = torch.sort(pm * nbk + lb[0::2].to(i64), stable=True)
+    pa, pb, pm = a[order].contiguous(), b[order].contiguous(), pm[order]
+    Q = key.numel()
+    head = torch.ones((Q,), dtype=torch.bool, device=dev)
+    head[1:] = key[1:] != key[:-1]
+    seg = (torch.cumsum(head, 0) - 1).to(i32)
+    start = torch.nonzero(head).flatten()
+    seg_off = torch.cat([start, start.new_tensor([Q])])
+    size = torch.diff(seg_off)
+    spart, sbloom = key[start] // nbk, key[start] % nbk
+    seg_poff = torch.zeros((P + 1,), dtype=i64, device=dev)
+    seg_poff[1:] = torch.cumsum(torch.bincount(spart, minlength=P), 0)
+    # a segment's initial alive pairs: its bloom's pairs in segments of
+    # its partition or later, summed within the bloom from the last
+    o = torch.sort(sbloom * P + (P - 1 - spart)).indices
+    cs = torch.cumsum(size[o], 0)
+    bhead = torch.ones_like(o, dtype=torch.bool)
+    bhead[1:] = sbloom[o][1:] != sbloom[o][:-1]
+    idx = torch.arange(o.numel(), device=dev)
+    first = torch.cummax(torch.where(bhead, idx, 0), 0).values
+    k_init = torch.empty_like(size)
+    k_init[o] = cs - (cs - size[o])[first]
+    # each edge's pairs in its own partition's sub-index
+    q = torch.arange(Q, dtype=i32, device=dev)
+    own_a = part_d[pa.to(i64)] == pm
+    own_b = part_d[pb.to(i64)] == pm
+    src = torch.cat([pa[own_a], pb[own_b]]).to(i64)
+    src, o3 = torch.sort(src, stable=True)
+    ent = torch.cat([q[own_a], q[own_b]])[o3]
+    edge_off = torch.zeros((m + 1,), dtype=i64, device=dev)
+    edge_off[1:] = torch.cumsum(torch.bincount(src, minlength=m), 0)
+    rows = torch.sort(part_d, stable=True).indices
+    row_off = torch.zeros((P + 1,), dtype=i64, device=dev)
+    row_off[1:] = torch.cumsum(torch.bincount(part_d.to(i64), minlength=P), 0)
+    sup = _t(np.asarray(sup_init).astype(np.int32), dev)
+    return tuple(t.to(i32).contiguous() for t in (
+        rows, row_off, sup, edge_off, ent, pa, pb, seg, seg_off, seg_poff,
+        k_init, part_d))
 
 
 def _wing_spec_dense(g: BipartiteGraph, stats: PeelStats,

@@ -18,9 +18,12 @@ itself (a head dim that is not an instance is padded inside its
 wrapper).  ``beindex_wedges`` pads nothing either: it enumerates every
 wedge slot of the BE-Index build's CSR for ``core.beindex.build_beindex``
 (which has no JAX kernel: the JAX package builds its index in a host
-loop), and ``fd_tip_dense`` pads nothing: it peels every partition of
+loop), ``fd_tip_dense`` pads nothing: it peels every partition of
 the dense tip engine's FD phase in one launch (the JAX package peels
-them from a host loop).
+them from a host loop), and neither does ``fd_wing_beindex``, which
+peels every partition of the BE-Index wing engine's FD phase in one
+launch (the JAX package's host loop runs a whole-sub-index
+``index_add_`` update a round; the port's FD no longer does).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from .bloom_update import bloom_update as _bloom_update
 from .butterfly_count import matmul, pack_s8, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
 from .fd_tip_dense import fd_tip_dense
+from .fd_wing_beindex import fd_wing_beindex
 from .flash_attention import flash_attention as _flash_attention
 from .support_update import support_update as _support_update
 from .wedge_count import wedge_count, wedge_count_tile
@@ -46,6 +50,7 @@ __all__ = [
     "fd_round_tip",
     "fd_round_wing",
     "fd_tip_dense",
+    "fd_wing_beindex",
     "flash_attention",
     "launch_counts",
     "pack_blooms",
@@ -62,7 +67,7 @@ __all__ = [
 KERNELS = ("fd_round_wing", "fd_round_tip", "support_update", "wedge_count",
            "wedge_count_tile", "bloom_update", "vertex_count",
            "vertex_count_tile", "matmul", "flash_attention", "beindex_wedges",
-           "fd_tip_dense")
+           "fd_tip_dense", "fd_wing_beindex")
 
 
 def launch_counts() -> dict:

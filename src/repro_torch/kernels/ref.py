@@ -20,6 +20,7 @@ __all__ = [
     "fd_round_wing_ref",
     "fd_round_tip_ref",
     "fd_tip_dense_ref",
+    "fd_wing_beindex_ref",
     "matmul_f32",
     "matmul_ref",
     "pack_s8_ref",
@@ -181,6 +182,81 @@ def fd_tip_dense_ref(pair, rows, off, sup):
                 r += 1
         rounds[p] = r
     return theta, rounds, rec
+
+
+def fd_wing_beindex_ref(rows, row_off, sup, edge_off, ent, pa, pb, seg,
+                        seg_off, seg_poff, k_init, part):
+    """Every BE-Index wing partition's bottom-up peel (the JAX package's
+    host loop ``core/peel.py::_wing_fd_beindex``, all partitions), each
+    round one whole-sub-index update of ``core/peel.py::_wing_update``:
+    partition p's sub-index is the twin pairs of its segments
+    ``seg_poff[p]:seg_poff[p + 1]`` (pair q: members ``pa[q]``, ``pb[q]``,
+    segment ``seg[q]``), each segment's alive pairs start at ``k_init``;
+    its edges ``rows[row_off[p]:row_off[p + 1]]`` start at ``sup``.  A
+    round sets θ = k on the alive with support <= k (k the running max of
+    the alive's least support) and kills them; a pair dies with either
+    member, its widow loses the segment's alive pairs less one, the
+    surviving pairs of a segment that lost c pairs lose c each, and the
+    round counts its widow and surviving links.  ``edge_off`` and ``ent``
+    (the kernel's edge-major index) and ``part`` are not read.  Returns
+    (theta (m,) int32, rounds (P,) int32, updates (P,) int64, rec (m, 4)
+    int64 with round r of partition p's (k, died, frontier, updates) at
+    ``row_off[p] + r``, zero past the last round); a partition with no
+    pair runs no round and leaves its θ at 0."""
+    m, P = sup.shape[0], row_off.shape[0] - 1
+    dev = rows.device
+    i32, i64 = torch.int32, torch.int64
+    theta = torch.zeros((m,), dtype=i32, device=dev)
+    rounds = torch.zeros((P,), dtype=i32, device=dev)
+    updates = torch.zeros((P,), dtype=i64, device=dev)
+    rec = torch.zeros((m, 4), dtype=i64, device=dev)
+    for p in range(P):
+        s0, s1 = int(seg_poff[p]), int(seg_poff[p + 1])
+        q0, q1 = int(seg_off[s0]), int(seg_off[s1])
+        if q0 == q1:
+            continue
+        a, b = pa[q0:q1].to(i64), pb[q0:q1].to(i64)
+        le = torch.stack([a, b], 1).flatten()
+        lt = torch.stack([b, a], 1).flatten()
+        lb = (seg[q0:q1].to(i64) - s0).repeat_interleave(2)
+        canon = le < lt
+        k_alive = k_init[s0:s1].to(i64).clone()
+        lo, hi = int(row_off[p]), int(row_off[p + 1])
+        alive = torch.zeros((m,), dtype=torch.bool, device=dev)
+        alive[rows[lo:hi].to(i64)] = True
+        s = torch.where(alive, sup.to(i64), 0)
+        alive_link = torch.ones_like(le, dtype=torch.bool)
+        k = r = 0
+        total = 0
+        while bool(alive.any()):
+            k = max(k, int(s[alive].min()))
+            while True:
+                S = alive & (s <= k)
+                died = int(S.sum())
+                if died == 0:
+                    break
+                theta[S] = k
+                alive &= ~S
+                pe, pt = S[le], S[lt]
+                dies = alive_link & (pe | pt)
+                c = torch.zeros_like(k_alive).index_add_(
+                    0, lb, (dies & canon).to(i64))
+                widow = alive_link & ~pe & pt
+                surv = alive_link & ~dies
+                c_l = c[lb]
+                contrib = (torch.where(widow, k_alive[lb] - 1, 0)
+                           + torch.where(surv, c_l, 0))
+                s = s - torch.zeros_like(s).index_add_(0, le, contrib)
+                n_upd = int(widow.sum() + (surv & (c_l > 0)).sum())
+                alive_link &= ~dies
+                k_alive -= c
+                rec[lo + r] = torch.tensor(
+                    [k, died, int(alive.sum()), n_upd], device=dev)
+                r += 1
+                total += n_upd
+        rounds[p] = r
+        updates[p] = total
+    return theta, rounds, updates, rec
 
 
 @contextlib.contextmanager

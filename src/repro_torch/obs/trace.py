@@ -75,9 +75,10 @@ name / cat             ph          sinks  meaning
                                           bloom sorts and the download of
                                           the four arrays
 ``spec.upload``        —           P S    the spec's copies to the device
-``fd.pack``            —           P S    an FD driver's host preparation of
-                                          its partition arrays and their
-                                          copies to the device
+``fd.pack``            —           P S    an FD driver's preparation of its
+                                          partition arrays and their
+                                          copies to the device (on the
+                                          device for ``fd_wing_beindex``)
 ``graph.from_edges``   —           P S    ``BipartiteGraph.from_edges``
                                           (its seconds travel with the
                                           graph; the peel CLI's
@@ -91,8 +92,10 @@ name / cat             ph          sinks  meaning
 Counters (:func:`counts`): ``peel.decompositions``, one a
 ``decompose()``; ``fd.host_syncs``, every read from the device to the
 host that the FD drivers make (the drained-flag reads of the device
-loops, the host cascades' support and update-count reads, and the
-rounds, update counts and θ read back after each dispatch).
+loops, the host cascades' support and update-count reads, the rounds,
+update counts and θ read back after each dispatch, and the one read
+after a ``fd_tip_dense`` or ``fd_wing_beindex`` launch, with one more
+of its round records while a timeline collector is live).
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import counting, csr, peel, peelspec
 from repro_torch.core.beindex import build_beindex
 from repro_torch.core.distributed import (pack_fd_partitions_csr,
@@ -378,6 +379,75 @@ def test_fd_tip_dense_kernel_equals_plain(card, P, empty):
     assert n == 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def _bcl943_graph():
+    """The benchmark's bcl-943 graph (``portbench/configs/bcl-943.json``'s
+    ``generate`` block, unrelabelled): 943 × 1 682 drawn at 100 000
+    edges, alpha 0.6, seed 0, then 560 users kept (seed 0) with all their
+    edges; CD at P 16 leaves it one partition."""
+    g = powerlaw_bipartite(943, 1682, 100000, alpha=0.6, seed=0)
+    kept = np.sort(np.random.default_rng(0).choice(943, size=560,
+                                                   replace=False))
+    new_id = np.full(943, -1, dtype=np.int64)
+    new_id[kept] = np.arange(560)
+    e = g.edges[new_id[g.edges[:, 0]] >= 0]
+    return BipartiteGraph.from_edges(
+        560, 1682, np.stack([new_id[e[:, 0]], e[:, 1]], 1))
+
+
+# (graph, P, partitions CD leaves): bcl-943's one partition, and seeded
+# skewed graphs with many
+FD_WING_BE_GRAPHS = {
+    "bcl943": (_bcl943_graph, 16, 1),
+    "pl3k": (lambda: powerlaw_bipartite(3000, 2000, 40000, alpha=0.6,
+                                        seed=1), 16, None),
+    "pl800": (GRAPHS["pl800"], 32, None),
+}
+
+
+@pytest.mark.parametrize("gname", sorted(FD_WING_BE_GRAPHS))
+def test_fd_wing_beindex_kernel_equals_plain(card, gname):
+    """The beindex FD kernel against its plain version on the pack of a
+    CD run on the card: θ, each partition's rounds and updates and every
+    round's record, with one launch for all partitions."""
+    make, P, n_parts = FD_WING_BE_GRAPHS[gname]
+    g = make()
+    stats = peelspec.PeelStats()
+    spec = peel.build_peel_spec(g, "wing", stats, engine="beindex",
+                                device=card)
+    part, sup_init, _, n = peelspec.cd_loop(spec, P, stats)
+    assert n == n_parts if n_parts else n > 4
+    be = build_beindex(g, card)
+    le, lt, lb = peel._wing_links(be, card)
+    args = peel._wing_fd_pack(le, lt, lb, be.nb, part, sup_init)
+    want = ref.fd_wing_beindex_ref(*args)
+    got, launches = _launched("fd_wing_beindex",
+                              lambda: ops.fd_wing_beindex(*args))
+    assert launches == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[1].sum()) > n
+
+
+@pytest.mark.parametrize("gname", ["pl3k", "pl800"])
+def test_wing_beindex_decomposition_reads_the_card_once(card, gname):
+    """A whole beindex wing decomposition on the card launches one
+    ``fd_wing_beindex`` and reads its FD results once (``fd.host_syncs``
+    1), and gives the CPU run's θ and stats."""
+    make, P, _ = FD_WING_BE_GRAPHS[gname]
+    g = make()
+    want = peel.wing_decomposition(g, P=P, device="cpu")
+    before, syncs = ops.launch_counts(), obs.counts().get("fd.host_syncs", 0)
+    got = peel.wing_decomposition(g, P=P, device=card)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in ops.KERNELS} == {
+        k: int(k in ("beindex_wedges", "fd_wing_beindex"))
+        for k in ops.KERNELS}
+    assert obs.counts()["fd.host_syncs"] - syncs == 1
+    assert got.stats.p_effective > 1
+    np.testing.assert_array_equal(got.theta, want.theta)
+    assert got.stats.as_dict() == want.stats.as_dict()
 
 
 @pytest.mark.parametrize("bad", [2.0, 0.5, -1.0, float("nan")])

@@ -12,6 +12,11 @@ package.
   against it (the JAX test's identity), the dense tip engine under every
   ``batch_recount`` setting and the dense wing engine with an injected
   ⋈init, each against the JAX engine on graphs drawn with numpy;
+* the beindex FD phase (every partition in one ``fd_wing_beindex``
+  launch; on the CPU its plain version) against the JAX package's host
+  cascade: θ, ρ_fd, updates and every FD timeline row, on the goldens'
+  graphs at several P, with one partition, with a partition that has no
+  pair of its own, and for an ``only=`` subset;
 * the BE_PC baseline and ``bup_levels`` against the reference;
 * the dense engine's memory guard.
 
@@ -25,12 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jobs
 from repro.core import peel as jpeel
+from repro.core import peelspec as jspec
 from repro.core import ref as core_ref
 from repro.core.beindex import build_beindex as jbuild_beindex
 from repro.core.graph import BipartiteGraph as JGraph
+from repro_torch import obs as tobs
 from repro_torch.core import graph as tgraph
 from repro_torch.core import peel as tpeel
+from repro_torch.core import peelspec as tspec
 from repro_torch.core.beindex import build_beindex
 from repro_torch.kernels import ops
 
@@ -323,6 +332,84 @@ def test_be_index_injection_changes_nothing():
     assert _snapshot(a) == _snapshot(b)
 
 
+# (graph, P) for the beindex FD phase: the goldens' graphs at several P
+# (P 1: CD leaves one partition, as on the benchmark's bcl-943), and a
+# sparse graph whose partition 0 holds no twin pair (its edges have no
+# butterfly), so that partition runs no round
+BE_FD_GRAPHS = dict(GRAPHS, sparse30=lambda: tgraph.random_bipartite(
+    30, 24, 60, seed=0))
+BE_FD_CASES = ([(g, P) for g in sorted(GRAPHS) for P in (1, 2, 4, 16)]
+               + [("sparse30", 3)])
+
+
+def _wing_pair(name):
+    tg = BE_FD_GRAPHS[name]()
+    return JGraph(tg.n_u, tg.n_v, tg.edges.copy()), tg
+
+
+@pytest.mark.parametrize("name,P", BE_FD_CASES,
+                         ids=[f"{g}-P{P}" for g, P in BE_FD_CASES])
+def test_beindex_fd_equals_reference(name, P):
+    """θ, every stat and every FD timeline row (k, died, frontier,
+    updates) of the beindex engine equal the JAX package's."""
+    jg, tg = _wing_pair(name)
+    try:
+        tobs.enable()
+        got = tpeel.wing_decomposition(tg, P=P, device="cpu")
+        jobs.enable()
+        want = jpeel.wing_decomposition(jg, P=P)
+    finally:
+        tobs.disable()
+        jobs.disable()
+    assert _snapshot(got) == _snapshot(want)
+    np.testing.assert_array_equal(got.theta, core_ref.bup_wing_ref(jg))
+    assert len(got.timeline.fd) == len(want.timeline.fd) > 0
+    for a, b in zip(got.timeline.fd, want.timeline.fd):
+        for key in ("mode", "parts", "rounds", "truncated"):
+            assert a[key] == b[key], key
+        for key in ("k", "died", "frontier", "updates"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    s = got.stats
+    if P == 1:
+        assert s.p_effective == 1 and s.rho_fd_total == s.rho_fd_max > 0
+    if name == "sparse30":
+        per = {}
+        st = tspec.PeelStats()
+        spec = tpeel.build_peel_spec(tg, "wing", st, engine="beindex",
+                                     device="cpu")
+        part, sup_init, _, n = tspec.cd_loop(spec, P, st)
+        tspec.run_fd(spec, part, sup_init, np.zeros(tg.m, np.int64), n, st,
+                     per_partition=per)
+        assert per[0] == (0, 0, 0) and (part == 0).any()
+        assert sum(v[0] for v in per.values()) == s.rho_fd_total > 0
+
+
+@pytest.mark.parametrize("name,P,only", [("pl80", 16, [4, 0, 2]),
+                                         ("sparse30", 3, [0]),
+                                         ("rb30", 4, [1])])
+def test_beindex_fd_only_subset_equals_reference(name, P, only):
+    """``run_fd(only=...)`` peels just those partitions: θ (0 elsewhere),
+    each partition's (rounds, updates, recounts) and the stats equal the
+    JAX package's."""
+    jg, tg = _wing_pair(name)
+    out = []
+    for spec_mod, peel_mod, g, kw in ((tspec, tpeel, tg, dict(device="cpu")),
+                                      (jspec, jpeel, jg, {})):
+        st = spec_mod.PeelStats()
+        spec = peel_mod.build_peel_spec(g, "wing", st, engine="beindex", **kw)
+        part, sup_init, _, n = spec_mod.cd_loop(spec, P, st)
+        assert n > max(only)
+        theta, per = np.zeros(g.m, np.int64), {}
+        spec_mod.run_fd(spec, part, sup_init, theta, n, st, only=only,
+                        per_partition=per)
+        out.append((theta, per, st.as_dict(), part))
+    (t_theta, t_per, t_st, part), (j_theta, j_per, j_st, _) = out
+    np.testing.assert_array_equal(t_theta, j_theta)
+    assert not t_theta[~np.isin(part, only)].any()
+    assert t_per == j_per and sorted(t_per) == sorted(only)
+    assert t_st == j_st
+
+
 @pytest.mark.parametrize("seed,tau", [(5, 0.25), (9, 0.5)])
 def test_bepc_baseline_equals_reference(seed, tau):
     jg, tg = _graph_pair(seed)
@@ -379,7 +466,8 @@ def test_chip_smoke_engine_phase_rehearsed_on_cpu(monkeypatch):
     launches = {}
     rows, seconds = smoke.phase_engines(engines, fullsize, "cpu", launches)
     assert set(rows) == {"vertex_count", "vertex_count_tile", "matmul",
-                         "bloom_update", "beindex_wedges", "fd_tip_dense"}
+                         "bloom_update", "beindex_wedges", "fd_tip_dense",
+                         "fd_wing_beindex"}
     assert all(r["max_abs_err"] == 0.0 for r in rows.values())
     assert launches and not any(launches.values())
     assert {"dense-16k --kind tip --engine dense", "wing-60k --kind wing",
