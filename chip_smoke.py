@@ -65,11 +65,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
    held ``torch.equal`` to its plain version (for the whole-graph counts,
    the route ``core.counting`` itself takes) and to the JAX counts;
    wing-60k through ``--kind wing`` (beindex, the default) and
-   ``--engine dense``; its BE-Index built on the card (one
-   ``beindex_wedges`` launch, counted), then through ``ops.bloom_update``
-   round by round over seeded peel sets, held to the plain version and
-   to the engine's own update every round; ``beindex_wedges`` on its CSR
-   held ``torch.equal`` to its plain version and timed.
+   ``--engine dense``; its BE-Index built on the card (torch ops, no
+   kernel launch, counted), then through ``ops.bloom_update`` round by
+   round over seeded peel sets, held to the plain version and to the
+   engine's own update every round.
 9. lm — the dense-family LM serving path and the ``flash_attention``
    kernel: the kernel against its plain version at ChatGLM3-6B's prefill
    shape, D = 64 (GQA), D = 256 (MQA), a ragged non-causal and an offset
@@ -315,9 +314,6 @@ KERNEL_INFO = {
                "src/repro/kernels/butterfly_count.py:149"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:65"),
-    # no JAX kernel: the JAX package's BE-Index build is a host loop
-    "beindex_wedges": ("src/repro_torch/kernels/csrc/beindex.cu",
-                       "src/repro/core/beindex.py:92"),
     # no JAX kernel: the JAX package peels each dense tip partition from
     # a host loop
     "fd_tip_dense": ("src/repro_torch/kernels/csrc/fd_tip_dense.cu",
@@ -592,8 +588,8 @@ def phase_kernels(fullsize, realdata, dev, cache, tmp):
     import torch
 
     from repro_torch.core import csr, peel
-    from repro_torch.core.distributed import (pack_fd_partitions_csr,
-                                              pack_fd_partitions_tip_csr)
+    from repro_torch.core.fdpack import (pack_fd_partitions_csr,
+                                         pack_fd_partitions_tip_csr)
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.support_update import support_update
     from repro_torch.kernels.wedge_count import wedge_count
@@ -976,8 +972,8 @@ def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
     The kernel launches counted on the card: the dense tip counts its
     ⋈init and each §5.1 batch re-count with one ``vertex_count`` and
     peels its FD phase with one ``fd_tip_dense``, the beindex engine
-    builds its index with one ``beindex_wedges`` and peels its FD phase
-    with one ``fd_wing_beindex``, and nothing else launches a kernel.
+    peels its FD phase with one ``fd_wing_beindex``, and nothing else
+    launches a kernel.
     Returns the run's PeelResult."""
     import torch
 
@@ -994,7 +990,6 @@ def engines_cli(label, g, argv, engine, wants, dev, launches, seconds):
             want["vertex_count"] = 1 + got["stats"]["recounts"]
             want["fd_tip_dense"] = 1
         if engine == "beindex":
-            want["beindex_wedges"] = 1
             want["fd_wing_beindex"] = 1
     expect(label, "kernel launches", counts, want)
     for k, v in counts.items():
@@ -1183,31 +1178,8 @@ def phase_engines(engines, fullsize, dev, launches):
                                   (wf, we.get(engine)), dev, launches,
                                   seconds)
     rows["bloom_update"] = check_bloom_rounds(we, g, dev, launches, seconds)
-    rows["beindex_wedges"] = check_beindex_wedges(g, dev)
     rows["fd_wing_beindex"] = check_fd_wing_beindex(g, res["beindex"], dev)
     return rows, seconds
-
-
-def check_beindex_wedges(g, dev):
-    """``ops.beindex_wedges`` on the BE-Index build's CSR of ``g`` against
-    its plain version, slot for slot, then both timed.  The bound is the
-    bytes it has to move: 16 a slot written (an int64 key, two int32
-    edge ids) and the CSR and labels read once."""
-    from repro_torch.core.beindex import _wedge_inputs
-    from repro_torch.kernels import ops, ref
-
-    inputs = _wedge_inputs(g, dev)
-    n_slots = int(inputs[3][-1])
-    got = ops.beindex_wedges(*inputs)
-    want = ref.beindex_wedges_ref(*inputs)
-    expect("beindex_wedges", "dtypes", [t.dtype for t in got],
-           [t.dtype for t in want])
-    del got, want
-    nbytes = 16 * n_slots + sum(t.numel() * t.element_size() for t in inputs)
-    row = check_rows_kernel("beindex_wedges", ops.beindex_wedges,
-                            ref.beindex_wedges_ref, inputs, nbytes)
-    row.update(bound_by="bytes", slots=n_slots)
-    return row
 
 
 def check_fd_wing_beindex(g, res, dev):
@@ -1343,9 +1315,8 @@ def check_bloom_rounds(we, g, dev, launches, seconds):
     sync(dev)
     counts = ops.launch_counts()
     on_card = torch.device(dev).type == "cuda"
-    expect("wing-60k build and bloom rounds", "launches",
-           {k: counts[k] for k in ("beindex_wedges", "bloom_update")},
-           dict(beindex_wedges=int(on_card), bloom_update=4 * on_card))
+    expect("wing-60k build and bloom rounds", "launches", counts,
+           dict(dict.fromkeys(ops.KERNELS, 0), bloom_update=4 * on_card))
     for key, v in counts.items():
         launches[key] = launches.get(key, 0) + v
     sent = m
@@ -3172,17 +3143,15 @@ DIST_CLI = (("wing", ["--kind", "wing", "--engine", "csr"]),
 
 
 def dist_run(label, fn, g, mesh, axis, kw, want_theta, per_round, dev,
-             dense=False, vmapped=False, beindex=False) -> dict:
+             dense=False, vmapped=False) -> dict:
     """One world-1 distributed decomposition with the obs layer on (for
     the ``cd.round`` span seconds): θ's sha256 held to the golden, the
     collectives counted (``per_round`` a CD round, the dense recount 3
     a round and 3 at ⋈init; none in FD; one result gather, none for the
-    vmapped tip FD) and the kernel launches counted: with ``beindex``
-    the BE-Index build's one ``beindex_wedges`` on the card, and no
-    other (the distributed bodies are segment sums, as the JAX
-    package's).  Returns θ, stats, the PeelResult and the seconds."""
-    import torch
-
+    vmapped tip FD) and the kernel launches counted: none (the BE-Index
+    build is torch ops and the distributed bodies are segment sums, as
+    the JAX package's).  Returns θ, stats, the PeelResult and the
+    seconds."""
     from repro_torch import obs
     from repro_torch.core import distributed as D
     from repro_torch.kernels import ops
@@ -3202,9 +3171,8 @@ def dist_run(label, fn, g, mesh, axis, kw, want_theta, per_round, dev,
     expect(label, "collectives", D.collective_counts(), dict(
         cd=3 * (rho + 1) if dense else per_round * rho, fd=0,
         result=0 if vmapped else 1))
-    expect(label, "kernel launches", ops.launch_counts(), {
-        k: int(k == "beindex_wedges" and beindex
-               and torch.device(dev).type == "cuda") for k in ops.KERNELS})
+    expect(label, "kernel launches", ops.launch_counts(),
+           dict.fromkeys(ops.KERNELS, 0))
     expect(label, "cd.round spans", tracer.count("cd.round", ph="X"), rho)
     secs = dict(total=round(dt, 3),
                 **{k: round(v, 3) for k, v in res.seconds.items()},
@@ -3401,7 +3369,7 @@ def phase_distributed(fullsize, engines, large, dev, tmp, launches) -> dict:
         runs["wing-60k beindex bloom_aligned"] = dist_run(
             "wing-60k beindex bloom_aligned", wing, g60, mesh, "peel",
             dict(P_parts=16, engine="beindex", bloom_aligned=True),
-            th["wing60"], 1, dev, beindex=True)
+            th["wing60"], 1, dev)
         runs["wing-60k csr pair_aligned (1, 1) mesh"] = r2 = dist_run(
             "wing-60k csr pair_aligned (1, 1) mesh", wing, g60, mesh2,
             ("grp", "loc"), dict(P_parts=16, engine="csr",

@@ -6,7 +6,7 @@ decomposition on the csr, beindex and dense engines with the csr FD
 drivers, the real-graph path (out-of-core ingest, tiled ⋈init), the
 hierarchy of dense subgraphs and its query service, the dense-family
 LM serving path (``repro_torch.models``, ``repro_torch.serve``), and
-ten hand-written CUDA kernels (``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy, never
+twelve hand-written CUDA kernels (``repro_torch/kernels/csrc``).  It imports ``torch`` and numpy, never
 ``jax`` and nothing of ``repro``.  See ``repro_torch/README.md``.
 """
 from .core.graph import (

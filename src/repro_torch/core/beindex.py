@@ -6,17 +6,16 @@ over the combined vertex set, ties by id).  Every butterfly lives in
 exactly one bloom (property 2); an edge shares k−1 butterflies with its
 twin and 1 with every other bloom edge (property 1).
 
-Construction happens on the device that the caller names: the
-``beindex_wedges`` kernel enumerates the filtered wedges of a CSR, and
-stable sorts group them into blooms; the four flat arrays come back to
-the host once, as numpy.  Peeling consumes them on the device: CD rounds
-through int32 ``index_add_`` (``core.peel._wing_update``), the
-replacement for the paper's atomics, and the whole FD phase through one
-``fd_wing_beindex`` launch, whose int32 atomics are the paper's (no
+Construction happens on the device that the caller names, in plain
+torch ops: every wedge slot of a CSR is enumerated and filtered, and
+stable sorts group the slots into blooms; the four flat arrays come
+back to the host once, as numpy.  Peeling consumes them on the device:
+CD rounds through int32 ``index_add_`` (``core.peel._wing_update``),
+the replacement for the paper's atomics, and the whole FD phase through
+one ``fd_wing_beindex`` launch, whose int32 atomics are the paper's (no
 ``index_add_``; ``core.peel._wing_fd_beindex``).  The port of the JAX
-package's ``core/beindex.py``
-(a host loop): the same enumeration order and bloom numbering, so every
-array is equal to the reference's.
+package's ``core/beindex.py`` (a host loop): the same enumeration order
+and bloom numbering, so every array is equal to the reference's.
 
 Flat layout (all int32):
     bloom_k[nb]       initial bloom number (alive twin pairs)
@@ -33,7 +32,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import ops
 from .graph import BipartiteGraph
 from .peelspec import _t
 
@@ -86,12 +84,12 @@ def build_beindex(g: BipartiteGraph, device=None) -> BEIndex:
     non-dominant set is every common neighbour ``mid`` with
     label(mid) > label(h).  Blooms with k < 2 hold no butterflies and are
     dropped.  Cost: Σ_mid C(d_mid, 2) wedge slots, enumerated on
-    ``device`` (default the CPU) by ``ops.beindex_wedges`` in the order
+    ``device`` (default the CPU) by :func:`_wedge_slots` in the order
     (mid, i, j) of the reference's loop, then grouped by stable sorts:
     a bloom's wedges keep mid order, and blooms are numbered by their
     first-seen wedge, the loop's dict insertion order."""
     dev = torch.device("cpu" if device is None else device)
-    key, e_lo, e_hi = ops.beindex_wedges(*_wedge_inputs(g, dev))
+    key, e_lo, e_hi = _wedge_slots(*_wedge_inputs(g, dev))
     keep = key >= 0
     key, e_lo, e_hi = key[keep], e_lo[keep], e_hi[keep]
     # group equal keys; stable, so a group's first element is its
@@ -122,23 +120,48 @@ def build_beindex(g: BipartiteGraph, device=None) -> BEIndex:
 
 
 def _wedge_inputs(g: BipartiteGraph, dev: torch.device) -> tuple:
-    """``ops.beindex_wedges``' inputs on ``dev``: the combined-id CSR
+    """:func:`_wedge_slots`' inputs on ``dev``: the combined-id CSR
     (U vertex u -> u, V vertex v -> n_u + v; each row in edge-index
-    order, by a stable sort), its row offsets and C(d, 2) slot offsets,
-    and the int32 priority labels."""
+    order, by a stable sort), its row offsets and the int32 priority
+    labels."""
     du, dv = g.degrees()
     deg = np.concatenate([du, dv])
     row_off = np.zeros(g.n + 1, dtype=np.int64)
     np.cumsum(deg, out=row_off[1:])
-    slot_off = np.zeros(g.n + 1, dtype=np.int64)
-    np.cumsum(deg * (deg - 1) // 2, out=slot_off[1:])
     e = _t(g.edges, dev).to(torch.int64)
     u, v = e[:, 0], e[:, 1] + g.n_u
     row = torch.sort(torch.cat([u, v]), stable=True).indices
     nbr = torch.cat([v, u])[row].to(torch.int32)
     eid = torch.arange(g.m, dtype=torch.int32, device=dev).repeat(2)[row]
-    return (nbr, eid, _t(row_off, dev), _t(slot_off, dev),
+    return (nbr, eid, _t(row_off, dev),
             _t(_priority_labels(g).astype(np.int32), dev))
+
+
+def _wedge_slots(nbr, eid, row_off, label):
+    """Every wedge slot of a combined-id CSR, in the order (mid, i, j),
+    i < j, of the reference's loop.  ``nbr``/``eid`` (2m,) int32 and
+    ``row_off`` (n + 1,) int64 are the CSR, ``label`` (n,) the priority
+    labels.  Returns int64 keys min·n + max of the slot's two endpoints,
+    −1 where label(mid) > min(label(a), label(b)) fails, and int32
+    ``e_lo``/``e_hi``, the edge ids joining mid to the smaller / larger
+    endpoint."""
+    n = label.shape[0]
+    dev = nbr.device
+    pos = torch.arange(nbr.shape[0], device=dev)
+    rows = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   row_off[1:] - row_off[:-1])
+    after = row_off[rows + 1] - pos - 1     # slots (i, j > i) of each i
+    first = torch.repeat_interleave(pos, after)
+    start = torch.cumsum(after, 0) - after
+    second = (first + 1 + torch.arange(first.shape[0], device=dev)
+              - start[first])
+    mid = rows[first]
+    a, b = nbr[first].to(torch.int64), nbr[second].to(torch.int64)
+    keep = label[mid] > torch.minimum(label[a], label[b])
+    key = torch.where(keep, torch.minimum(a, b) * n + torch.maximum(a, b), -1)
+    lo_a = a < b
+    ea, eb = eid[first], eid[second]
+    return key, torch.where(lo_a, ea, eb), torch.where(lo_a, eb, ea)
 
 
 def _host(x: torch.Tensor) -> np.ndarray:

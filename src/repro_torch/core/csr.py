@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..device import resolve_device
 from ..kernels import ops as kops
 from .graph import BipartiteGraph
 
@@ -254,8 +255,6 @@ def tiled_butterfly_init(
     stats = TileStats()
     tiles = iter_wedge_tiles(source, tile_wedges)
     if use_pallas:
-        from .peel import resolve_device
-
         out = _tiled_init_device(tiles, n_u, m, width,
                                  resolve_device(device), stats)
     else:
@@ -567,7 +566,6 @@ def pair_wedge_counts(
     if alive_e is not None:
         device = alive_e.device
     else:
-        from .peel import resolve_device
         device = resolve_device(device)
     wp = torch.from_numpy(w.wedge_pair).to(device)
     if alive_e is None:
@@ -608,7 +606,6 @@ def edge_butterflies_csr(
     if alive_e is not None:
         device = alive_e.device
     else:
-        from .peel import resolve_device
         device = resolve_device(device)
     if w.n_wedges == 0:
         return torch.zeros((max(w.m, 1),), dtype=torch.int32,

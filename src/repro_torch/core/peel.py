@@ -4,7 +4,8 @@ Phase 1 (CD) peels every entity whose support lies in the current range
 with one fully parallel masked update per round; Phase 2 (FD) peels each
 partition to exact entity numbers with no communication.  Both phases
 run the entity-agnostic core in ``core.peelspec``; this module only
-builds the :class:`PeelSpec` of each entity universe.
+builds the :class:`PeelSpec` of each entity universe.  The csr engine's
+FD partition packs come from ``core.fdpack``, below this module.
 
 Three engines, as in the JAX package, all giving the same θ:
 
@@ -47,7 +48,7 @@ import torch
 
 from . import counting, csr
 from .beindex import BEIndex, build_beindex
-from .distributed import pack_fd_partitions_csr, pack_fd_partitions_tip_csr
+from .fdpack import pack_fd_partitions_csr, pack_fd_partitions_tip_csr
 from .graph import BipartiteGraph
 from .peelspec import (
     PeelResult,
@@ -69,6 +70,7 @@ from .peelspec import (
     decompose,
 )
 from .. import obs
+from ..device import resolve_device
 from ..kernels import ops as kops
 
 __all__ = [
@@ -77,7 +79,6 @@ __all__ = [
     "PeelSpec",
     "build_peel_spec",
     "bup_levels",
-    "resolve_device",
     "tip_decomposition",
     "wing_decomposition",
     "wing_decomposition_bepc",
@@ -95,17 +96,6 @@ def _span(name: str, sec: Optional[dict]):
     ``torch.profiler`` records, a ``record_function``; no Tracer
     event."""
     return obs.span(name, seconds=sec, event=False)
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device for ``device``; refuses CUDA where there is no
-    card instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but torch.cuda.is_available() is False; pass "
-            "device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 def _device_loop(mine, sup0, update, aux, ring_cap: int):

@@ -37,8 +37,8 @@ import torch
 from .. import obs
 from ..core import csr
 from ..core.graph import BipartiteGraph
-from ..core.peel import resolve_device
 from ..core.peelspec import PeelResult
+from ..device import resolve_device
 
 __all__ = ["Hierarchy", "build_hierarchy"]
 

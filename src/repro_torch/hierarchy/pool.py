@@ -51,8 +51,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.peel import resolve_device
 from ..core.peelspec import _bucket_pad
+from ..device import resolve_device
 from .build import Hierarchy
 from .query import PackedForest, depth_and_up, extend_up, pack_forest
 from .serialize import load_hierarchy

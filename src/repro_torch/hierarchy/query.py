@@ -25,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.peel import resolve_device
+from ..device import resolve_device
 from .build import Hierarchy
 
 __all__ = [

@@ -46,7 +46,8 @@ import numpy as np
 
 from .. import obs
 from ..core.graph import BipartiteGraph
-from ..core.peel import PeelResult, resolve_device
+from ..core.peel import PeelResult
+from ..device import resolve_device
 from .build import (
     _BIG,
     Hierarchy,

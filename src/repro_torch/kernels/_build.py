@@ -30,8 +30,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
                          "build", "repro_torch_kernels")
 SOURCES = ("fd_round", "support_update", "wedge_count", "bloom_update",
-           "butterfly_count", "flash_attention", "beindex",
-           "fd_tip_dense", "fd_wing_beindex")
+           "butterfly_count", "flash_attention", "fd_tip_dense",
+           "fd_wing_beindex")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

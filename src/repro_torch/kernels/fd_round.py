@@ -45,7 +45,7 @@ def fd_round_wing(sup, alive, theta, k, rounds, nupd, aslot, W, e1, e2):
     State: sup/alive/theta (B, E) int32, k/rounds/nupd (B, 1) int32,
     slot alive mask ``aslot`` (B, R, K) int32 0/1, W (B, R) f32 (alive
     wedges per pair row); statics e1/e2 (B, R, K) int32 partition-local
-    edge ids with sentinel E (``core.distributed._pack_fd_slots_csr``).
+    edge ids with sentinel E (``core.fdpack._pack_fd_slots_csr``).
     Returns the 8 state tensors."""
     state = (sup, alive, theta, k, rounds, nupd, aslot, W)
     if sup.device.type == "cpu":

@@ -1,11 +1,11 @@
 """The port's kernel front door: padded wrappers, state transfer and
 launch counts.
 
-Callers (``core/csr.py``, ``core/peel.py``, ``core/beindex.py``,
-``chip_smoke.py``) import only this module.  Each wrapper dispatches by
-the device of the tensors it is given: a CUDA tensor launches the
-hand-written kernel or raises, a CPU tensor runs the plain version in
-``kernels/ref.py``.  There is no other switch.  ``pair_wedge_counts``,
+Callers (``core/csr.py``, ``core/peel.py``, ``chip_smoke.py``) import
+only this module.  Each wrapper dispatches by the device of the tensors
+it is given: a CUDA tensor launches the hand-written kernel or raises,
+a CPU tensor runs the plain version in ``kernels/ref.py``.  There is no
+other switch.  ``pair_wedge_counts``,
 ``tip_slot_loss`` and ``support_update`` pad their inputs to (128, 128)
 multiples,
 ``tile_row_counts`` to (``_row_bucket``, 128), the butterfly-counting
@@ -15,12 +15,10 @@ packages hand their kernels the same shapes (the vertex counts then
 pack their operand to int8, ``butterfly_count.pack_s8``).
 ``flash_attention`` pads no sequence: its kernel masks the ragged edge
 itself (a head dim that is not an instance is padded inside its
-wrapper).  ``beindex_wedges`` pads nothing either: it enumerates every
-wedge slot of the BE-Index build's CSR for ``core.beindex.build_beindex``
-(which has no JAX kernel: the JAX package builds its index in a host
-loop), ``fd_tip_dense`` pads nothing: it peels every partition of
-the dense tip engine's FD phase in one launch (the JAX package peels
-them from a host loop), and neither does ``fd_wing_beindex``, which
+wrapper).  ``fd_tip_dense`` pads nothing either: it peels every
+partition of the dense tip engine's FD phase in one launch (the JAX
+package peels them from a host loop), and neither does
+``fd_wing_beindex``, which
 peels every partition of the BE-Index wing engine's FD phase in one
 launch (the JAX package's host loop runs a whole-sub-index
 ``index_add_`` update a round; the port's FD no longer does).
@@ -33,7 +31,6 @@ import numpy as np
 import torch
 
 from . import _build
-from .beindex import beindex_wedges
 from .bloom_update import bloom_update as _bloom_update
 from .butterfly_count import matmul, pack_s8, vertex_count, vertex_count_tile
 from .fd_round import fd_round_tip, fd_round_wing
@@ -44,7 +41,6 @@ from .support_update import support_update as _support_update
 from .wedge_count import wedge_count, wedge_count_tile
 
 __all__ = [
-    "beindex_wedges",
     "bloom_update",
     "edge_wedge_matrix",
     "fd_round_tip",
@@ -66,8 +62,8 @@ __all__ = [
 
 KERNELS = ("fd_round_wing", "fd_round_tip", "support_update", "wedge_count",
            "wedge_count_tile", "bloom_update", "vertex_count",
-           "vertex_count_tile", "matmul", "flash_attention", "beindex_wedges",
-           "fd_tip_dense", "fd_wing_beindex")
+           "vertex_count_tile", "matmul", "flash_attention", "fd_tip_dense",
+           "fd_wing_beindex")
 
 
 def launch_counts() -> dict:

@@ -29,7 +29,6 @@ __all__ = [
     "vertex_count_tile_ref",
     "edge_wedge_matrix_ref",
     "bloom_update_ref",
-    "beindex_wedges_ref",
     "flash_attention_ref",
     "split_kv_ref",
 ]
@@ -376,35 +375,6 @@ def bloom_update_ref(pe, pt, alive, canon, k_alive):
     contrib = (torch.where(widow, k_alive[:, None] - 1.0, zero)
                + torch.where(surv, c[:, None], zero))
     return contrib, c
-
-
-def beindex_wedges_ref(nbr, eid, row_off, slot_off, label):
-    """Every wedge slot of a combined-id CSR, in the order (mid, i, j),
-    i < j, of ``core.beindex.build_beindex``'s loop (the JAX package has
-    no kernel here: its build is that loop).  ``nbr``/``eid`` (2m,) int32
-    and ``row_off`` (n + 1,) int64 are the CSR, ``slot_off`` its C(d, 2)
-    prefix sums (the kernel's row search; the plain version reads the
-    rows alone), ``label`` (n,) the priority labels.  Returns int64 keys
-    min·n + max of the slot's two endpoints, −1 where label(mid) >
-    min(label(a), label(b)) fails, and int32 ``e_lo``/``e_hi``, the edge
-    ids joining mid to the smaller / larger endpoint."""
-    n = label.shape[0]
-    dev = nbr.device
-    pos = torch.arange(nbr.shape[0], device=dev)
-    rows = torch.repeat_interleave(torch.arange(n, device=dev),
-                                   row_off[1:] - row_off[:-1])
-    after = row_off[rows + 1] - pos - 1     # slots (i, j > i) of each i
-    first = torch.repeat_interleave(pos, after)
-    start = torch.cumsum(after, 0) - after
-    second = (first + 1 + torch.arange(first.shape[0], device=dev)
-              - start[first])
-    mid = rows[first]
-    a, b = nbr[first].to(torch.int64), nbr[second].to(torch.int64)
-    keep = label[mid] > torch.minimum(label[a], label[b])
-    key = torch.where(keep, torch.minimum(a, b) * n + torch.maximum(a, b), -1)
-    lo_a = a < b
-    ea, eb = eid[first], eid[second]
-    return key, torch.where(lo_a, ea, eb), torch.where(lo_a, eb, ea)
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, scale=None,

@@ -164,7 +164,8 @@ def _dryrun(device) -> int:
     import tempfile
 
     from ..core.graph import powerlaw_bipartite
-    from ..core.peel import resolve_device, wing_decomposition
+    from ..core.peel import wing_decomposition
+    from ..device import resolve_device
     from ..hierarchy import (ForestPool, MultiTenantService,
                              build_hierarchy, multiserve, save_hierarchy)
 

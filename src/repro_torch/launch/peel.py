@@ -425,7 +425,7 @@ def _dryrun(n: int = 512) -> int:
     import torch
     import torch.distributed as dist
 
-    from ..core import csr, peel, peelspec
+    from ..core import csr, fdpack, peel, peelspec
     from ..core import distributed as D
     from ..core.beindex import build_beindex
     from ..core.graph import powerlaw_bipartite
@@ -503,11 +503,11 @@ def _dryrun(n: int = 512) -> int:
                 g, be, res_b.part, res_b.support_init,
                 res_b.stats.p_effective), mesh, "peel", dev)),
             ("csr wing", lambda: D.fd_peel_sharded_csr(
-                D.pack_fd_partitions_csr(
+                fdpack.pack_fd_partitions_csr(
                     wed, res_c.part, res_c.support_init,
                     res_c.stats.p_effective), mesh, "peel", dev)),
             ("csr tip", lambda: D.fd_peel_sharded_tip_csr(
-                D.pack_fd_partitions_tip_csr(
+                fdpack.pack_fd_partitions_tip_csr(
                     wed, bf0, res_t.part, res_t.support_init,
                     res_t.stats.p_effective, stacked=True),
                 mesh, "peel", dev)),

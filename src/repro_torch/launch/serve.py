@@ -46,7 +46,7 @@ import torch
 
 def run(args) -> int:
     from ..configs import get_config
-    from ..core.peel import resolve_device
+    from ..device import resolve_device
     from ..models import DenseLM, init_cache, init_params, reduced
 
     cfg = get_config(args.arch)

@@ -50,7 +50,7 @@ def train(args) -> dict:
     step_seconds (host clock, each ending in the loss's copy to the
     host), start, stragglers, cfg, params (the last step's)}."""
     from ..configs import get_config
-    from ..core.peel import resolve_device
+    from ..device import resolve_device
     from ..data import DataConfig, synthetic_batches
     from ..models import init_params, reduced
     from ..train import (AdamWConfig, StragglerDetector, TrainConfig,

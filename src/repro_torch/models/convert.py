@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .config import ModelConfig
 from .model import _put, fan_in, flat_items, param_specs
 
@@ -43,8 +44,6 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device="cuda",
                       dtype=torch.float32) -> Dict:
     """The same tree as tensors of ``dtype`` on ``device``; every leaf
     must have the shape ``param_specs(cfg)`` gives it."""
-    from ..core.peel import resolve_device
-
     dev = resolve_device(device)
     want = dict(flat_items(param_specs(cfg)))
     got = dict(flat_items(tree))

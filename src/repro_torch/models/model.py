@@ -39,6 +39,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
+from ..device import resolve_device
 from .config import ModelConfig
 from . import ssm as S
 from .layers import (DP_AXES, _is_dtensor, batch_placements, blockwise_attention,
@@ -265,8 +266,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     None) — not the JAX package's numbers, which come from
     ``jax.random``; ``convert.numpy_params`` gives weights both packages
     can load."""
-    from ..core.peel import resolve_device
-
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

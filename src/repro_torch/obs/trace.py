@@ -70,10 +70,10 @@ name / cat             ph          sinks  meaning
                                           dense: the first count)
 ``spec.beindex``       —           P S    ``build_beindex`` of the beindex
                                           spec, on the spec's device: the
-                                          CSR and labels, the
-                                          ``beindex_wedges`` launch, the
-                                          bloom sorts and the download of
-                                          the four arrays
+                                          CSR and labels, the wedge-slot
+                                          enumeration, the bloom sorts
+                                          and the download of the four
+                                          arrays
 ``spec.upload``        —           P S    the spec's copies to the device
 ``fd.pack``            —           P S    an FD driver's preparation of its
                                           partition arrays and their

@@ -21,6 +21,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.model import DenseLM, init_cache
 
@@ -49,8 +50,6 @@ class ContinuousBatcher:
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 4,
                  max_seq: int = 128, greedy: bool = True, device="cuda"):
-        from ..core.peel import resolve_device
-
         dev = resolve_device(device)
         self.device = params["embed"].device
         if self.device.type != dev.type or dev.index not in (

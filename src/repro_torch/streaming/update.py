@@ -41,8 +41,9 @@ import numpy as np
 
 from .. import obs
 from ..core.graph import BipartiteGraph
-from ..core.peel import PeelStats, build_peel_spec, resolve_device
+from ..core.peel import PeelStats, build_peel_spec
 from ..core.peelspec import PeelResult, cd_loop, run_fd
+from ..device import resolve_device
 from ..hierarchy.build import Hierarchy
 from ..hierarchy import repair as hrepair
 from . import delta as sdelta

@@ -17,7 +17,7 @@ from repro.core import graph as jgraph
 from repro.core.peel import tip_decomposition as jtip
 from repro.core.peel import wing_decomposition as jwing
 from repro_torch.core import csr as tcsr
-from repro_torch.core import distributed as tdist
+from repro_torch.core import fdpack as tfdpack
 from repro_torch.core import graph as tgraph
 
 # the suite runs in parallel worker processes: one intra-op thread each
@@ -87,15 +87,15 @@ def test_fd_packers_match(name):
     n = int(res.part.max()) + 1
     for kw in (dict(), dict(bucket=True, flat=True),
                dict(bucket=True, slots=True), dict(slots=True, flat=True)):
-        _eq_dict(tdist.pack_fd_partitions_csr(tw, res.part,
-                                              res.support_init, n, **kw),
+        _eq_dict(tfdpack.pack_fd_partitions_csr(tw, res.part,
+                                                res.support_init, n, **kw),
                  jdist.pack_fd_partitions_csr(jw, res.part,
                                               res.support_init, n, **kw))
     res = jtip(jg, side="u", P=4, engine="csr")
     n = int(res.part.max()) + 1
     bf0 = jw.pair_butterflies0()
     for kw in (dict(), dict(bucket=True), dict(bucket=True, stacked=True)):
-        _eq_dict(tdist.pack_fd_partitions_tip_csr(
+        _eq_dict(tfdpack.pack_fd_partitions_tip_csr(
             tw, bf0, res.part, res.support_init, n, **kw),
             jdist.pack_fd_partitions_tip_csr(
                 jw, bf0, res.part, res.support_init, n, **kw))

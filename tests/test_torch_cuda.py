@@ -21,8 +21,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import counting, csr, peel, peelspec
 from repro_torch.core.beindex import build_beindex
-from repro_torch.core.distributed import (pack_fd_partitions_csr,
-                                          pack_fd_partitions_tip_csr)
+from repro_torch.core.fdpack import (pack_fd_partitions_csr,
+                                     pack_fd_partitions_tip_csr)
 from repro_torch.core.graph import (BipartiteGraph, powerlaw_bipartite,
                                    random_bipartite)
 from repro_torch.kernels import _build, flash_attention, ops, ref
@@ -442,8 +442,7 @@ def test_wing_beindex_decomposition_reads_the_card_once(card, gname):
     got = peel.wing_decomposition(g, P=P, device=card)
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in ops.KERNELS} == {
-        k: int(k in ("beindex_wedges", "fd_wing_beindex"))
-        for k in ops.KERNELS}
+        k: int(k == "fd_wing_beindex") for k in ops.KERNELS}
     assert obs.counts()["fd.host_syncs"] - syncs == 1
     assert got.stats.p_effective > 1
     np.testing.assert_array_equal(got.theta, want.theta)
@@ -574,28 +573,14 @@ def _recorded_graph(name):
         rec["edges"], dtype=np.int32).reshape(-1, 2))
 
 
-@pytest.mark.parametrize("gname", [*sorted(GRAPHS), "numpy", "tied_degrees",
-                                   "unsorted_rows"])
-def test_beindex_wedges_kernel_equals_plain(card, gname):
-    from repro_torch.core.beindex import _wedge_inputs
-
-    g = GRAPHS[gname]() if gname in GRAPHS else _recorded_graph(gname)[1]
-    got, n = _launched("beindex_wedges",
-                       lambda: ops.beindex_wedges(*_wedge_inputs(g, card)))
-    assert n == 1
-    want = ref.beindex_wedges_ref(*_wedge_inputs(g, torch.device("cpu")))
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
-
-
 @pytest.mark.parametrize("name", ["numpy", "pl60", "pl80", "rb25", "rb30",
                                   "no_edges", "no_butterflies",
                                   "isolated_and_degree1", "tied_degrees",
                                   "unsorted_rows", "wing-60k"])
 def test_build_beindex_on_the_card_equals_the_reference(card, name):
-    """The CUDA build's nb and four arrays against the JAX package's
-    index, recorded by the sha256 of each array; one ``beindex_wedges``
-    launch a build."""
+    """The build on the card (torch ops, no kernel launch): its nb and
+    four arrays against the JAX package's index, recorded by the sha256
+    of each array."""
     import hashlib
 
     if name == "wing-60k":
@@ -605,8 +590,10 @@ def test_build_beindex_on_the_card_equals_the_reference(card, name):
         g = powerlaw_bipartite(**rec["graph"])
     else:
         rec, g = _recorded_graph(name)
-    be, n = _launched("beindex_wedges", lambda: build_beindex(g, card))
-    assert n == 1
+    before = ops.launch_counts()
+    be = build_beindex(g, card)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
     got = dict(nb=be.nb, n_links=be.n_links)
     if "max_pairs" in rec["index"]:
         got["max_pairs"] = int(be.bloom_k.max())

@@ -6,8 +6,8 @@ package.
 * ``build_beindex`` array-equal to the reference's, on the edge cases
   too (no butterflies, isolated and degree-1 vertices, tied degrees,
   unsorted edge rows), and ``torch_beindex.json``, the card tests'
-  record of the reference, held to it; the ``beindex_wedges`` kernel's
-  closed-form slot decode checked on rows up to 2**20 neighbours;
+  record of the reference, held to it; its wedge-slot enumeration
+  against a brute force on a row of 2 048 neighbours;
 * the BE-Index update (``_wing_update``), one ``ops.bloom_update`` round
   against it (the JAX test's identity), the dense tip engine under every
   ``batch_recount`` setting and the dense wing engine with an injected
@@ -190,53 +190,52 @@ def test_recorded_beindex_is_the_reference(name):
         assert (order != np.arange(tg.m)).any() and rec["nb"] > 0
 
 
-def _slot_decode_model(slot_off, row_off, s):
-    """``csrc/beindex.cu``'s slot -> (mid, i, j) in int64/float64 numpy:
-    the binary search over ``slot_off``, the closed-form slot row and its
-    one-step corrections (counted), as the kernel's threads run them."""
-    n = slot_off.size - 1
-    mid, hi = np.zeros_like(s), np.full_like(s, n)
-    while (hi - mid > 1).any():
-        live = hi - mid > 1
-        m = (mid + hi) >> 1
-        below = slot_off[m] <= s
-        mid = np.where(live & below, m, mid)
-        hi = np.where(live & ~below, m, hi)
-    t = s - slot_off[mid]
-    d = row_off[mid + 1] - row_off[mid]
-
-    def tri(i):
-        return i * (2 * d - i - 1) // 2
-
-    q = (2 * d - 1).astype(np.float64)
-    i = np.floor((q - np.sqrt(q * q - 8.0 * t)) * 0.5).astype(np.int64)
-    i = np.clip(i, 0, d - 2)
-    fixes = 0
-    while ((i > 0) & (tri(i) > t)).any():
-        i = np.where((i > 0) & (tri(i) > t), i - 1, i)
-        fixes += 1
-    while ((i < d - 2) & (tri(i + 1) <= t)).any():
-        i = np.where((i < d - 2) & (tri(i + 1) <= t), i + 1, i)
-        fixes += 1
-    return mid, i, i + 1 + t - tri(i), fixes
+def _wedge_slots_brute(g):
+    """Every wedge slot of ``g``'s combined-id CSR by ``np.triu_indices``,
+    row by row: (key or -1, e_lo, e_hi) in (mid, i, j) order."""
+    du, dv = g.degrees()
+    deg = np.concatenate([du, dv])
+    label = np.empty(g.n, dtype=np.int64)
+    label[np.lexsort((np.arange(g.n), -deg))] = np.arange(g.n)
+    rows = [[] for _ in range(g.n)]
+    for e, (u, v) in enumerate(g.edges.tolist()):
+        rows[u].append((g.n_u + v, e))
+        rows[g.n_u + v].append((u, e))
+    keys, lo, hi = [], [], []
+    for mid, row in enumerate(rows):
+        if len(row) < 2:
+            continue
+        nbr, eid = (np.array(x, dtype=np.int64) for x in zip(*row))
+        i, j = np.triu_indices(len(row), 1)
+        a, b = nbr[i], nbr[j]
+        keep = label[mid] > np.minimum(label[a], label[b])
+        keys.append(np.where(keep, np.minimum(a, b) * g.n
+                             + np.maximum(a, b), -1))
+        lo.append(np.where(a < b, eid[i], eid[j]))
+        hi.append(np.where(a < b, eid[j], eid[i]))
+    return tuple(np.concatenate(x) for x in (keys, lo, hi))
 
 
-def test_beindex_slot_decode_is_exact_on_long_rows():
-    """Rows up to 2**20 neighbours: every slot's (i, j) from the closed
-    form lies in its slot row, with at most one correction step."""
-    deg = np.array([2, 3, 7, 730, 4_096, 100_003, 1 << 20], dtype=np.int64)
-    row_off = np.concatenate([[0], np.cumsum(deg)])
-    slot_off = np.concatenate([[0], np.cumsum(deg * (deg - 1) // 2)])
+def test_beindex_wedge_slots_on_a_long_row():
+    """The BE-Index build's wedge enumeration on a star of degree 2 048
+    (2 096 128 slots in one row) plus random edges, its rows out of
+    edge-index order: every slot's key and edge ids equal a brute force
+    over ``np.triu_indices``."""
+    from repro_torch.core.beindex import _wedge_inputs, _wedge_slots
+
     rng = np.random.default_rng(0)
-    s = np.unique(np.concatenate([
-        slot_off[:-1], slot_off[1:] - 1, slot_off[:-1] + 1,
-        rng.integers(0, slot_off[-1], 200_000)]))
-    mid, i, j, fixes = _slot_decode_model(slot_off, row_off, s)
-    d = deg[mid]
-    t = s - slot_off[mid]
-    assert fixes <= 1
-    assert ((0 <= i) & (i < j) & (j < d)).all()
-    assert (i * (2 * d - i - 1) // 2 + (j - i - 1) == t).all()
+    n_u, n_v = 40, 2_048
+    star = np.stack([np.zeros(n_v, np.int64), np.arange(n_v)], 1)
+    extra = np.stack([rng.integers(1, n_u, 600), rng.integers(0, 64, 600)], 1)
+    edges = np.unique(np.concatenate([star, extra]), axis=0)
+    g = tgraph.BipartiteGraph(n_u, n_v, edges[rng.permutation(len(edges))]
+                              .astype(np.int32))
+    got = _wedge_slots(*_wedge_inputs(g, torch.device("cpu")))
+    want = _wedge_slots_brute(g)
+    assert want[0].size > n_v * (n_v - 1) // 2
+    assert (want[0] >= 0).any() and (want[0] < 0).any()
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), y)
 
 
 def test_build_beindex_on_wing_60k_equals_the_recorded_index():
@@ -466,8 +465,7 @@ def test_chip_smoke_engine_phase_rehearsed_on_cpu(monkeypatch):
     launches = {}
     rows, seconds = smoke.phase_engines(engines, fullsize, "cpu", launches)
     assert set(rows) == {"vertex_count", "vertex_count_tile", "matmul",
-                         "bloom_update", "beindex_wedges", "fd_tip_dense",
-                         "fd_wing_beindex"}
+                         "bloom_update", "fd_tip_dense", "fd_wing_beindex"}
     assert all(r["max_abs_err"] == 0.0 for r in rows.values())
     assert launches and not any(launches.values())
     assert {"dense-16k --kind tip --engine dense", "wing-60k --kind wing",
